@@ -2,24 +2,36 @@
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+To time the kernel against another build of it in the same run (for
+example an earlier commit's source):
+    python3 chip_smoke.py --baseline path/to/old/rule_match.cu
 
 Phases, in order; any failure exits non-zero:
   1. device: name, count and `nvidia-smi` name + power limit;
-  2. build: compile the rule-match kernel for sm_90a from the checkout;
-  3. kernel against its plain PyTorch version, exact int32 equality, on
-     random tables up to (B, R, C) = (4096, 160256, 31), a tie-break case,
-     a no-match case and n_engines = 1, 2, 4;
+  2. build: compile the rule-match kernel for sm_90a from the checkout and
+     print ptxas's registers, spills and static shared memory per instance;
+  3. kernel against its plain PyTorch versions, exact int32 equality, on
+     random tables up to (B, R, C) = (4096, 160256, 31) through the Pallas
+     signature (packing on the fly), a tie-break case, a no-match case,
+     n_engines = 1, 2, 4, and the packed entry with a sorted batch at ragged
+     R and B, C = 1..64 and one and two queries a thread;
   4. main path at the paper's scale: 160k v2 rules -> compile_rules ->
-     ErbiumEngine -> 16 user queries batched by paper_policy through
-     MCTWrapper(n_workers=2), checked against the plain version on the card,
-     cpu_match_numpy and the partitioned engine, plus one hot reload;
-  5. kernel time (CUDA events) at 160k rules beside the plain version's time
-     and the least time the card could take.
+     ErbiumEngine (table packed once at upload) -> 16 user queries batched
+     by paper_policy through MCTWrapper(n_workers=2), checked against the
+     plain version on the card, cpu_match_numpy and the partitioned engine,
+     plus one hot reload;
+  5. kernel time (CUDA events) at 160k rules and B = 256, 1024, 4096: the
+     main path's lane (sort, kernel, unsort) and its parts, one against two
+     queries a thread, one-key against lexicographic sorting, the plain
+     version, the work the data needs in the compiler's and the kernel's
+     criterion order, and the least time the card could take.
 It then prints one JSON line of kernel results and, last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -139,6 +151,51 @@ def phase_kernel_vs_plain(dev) -> int:
         print(f"match_rules n_engines={n_eng}: max_abs_err {e}")
         worst = max(worst, e)
     synchronize(dev)
+    return max(worst, phase_packed_vs_plain(dev))
+
+
+# (B, R, C) of the packed-entry checks: the random shapes above, R that the
+# 64-rule stage does not divide (999 is padded to 1000 by pack), ragged B,
+# a batch too large for the launch's own sort, and every criterion-count
+# instance of the kernel
+PACKED_CASES = ([(64, 128, 8), (512, 1024, 26), (4096, 160256, 31),
+                 (300, 1000, 31), (256, 4102, 31), (77, 999, 13),
+                 (9000, 3000, 31)]   # above SORT_MAX: argsort sorts
+                + [(512, 3000, C) for C in (1, 8, 31, 32, 33, 64)])
+
+
+def phase_packed_vs_plain(dev) -> int:
+    """The packed entry, batch sorted by the leading criterion, against the
+    packed plain version and rule_match_ref; returns the largest error."""
+    import numpy as np
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import rule_match as rm
+    from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
+
+    worst = 0
+    for B, R, C in PACKED_CASES:
+        q, mins, maxs, w = (torch.as_tensor(a, device=dev) for a in
+                            random_tables(np.random.default_rng(B + R + C),
+                                          B, R, C))
+        crit = rm.criterion_order(mins.T, maxs.T)
+        bounds, wk = rm.pack(mins.T, maxs.T, w, crit)
+        lead = int(crit[0])
+        order = torch.argsort(q[:, lead])
+        want = rule_match_packed_ref(q, bounds, wk, crit)
+        e_ref = err_of(want, rule_match_ref(q, mins, maxs, w))
+        errs = []
+        qpts = (1, 2) if C <= rm.MAX_CRIT_QPT2 else (1,)
+        for qpt in qpts:
+            for kw in (dict(sort_col=lead), dict(order=order)):
+                got = rm.rule_match_packed(q, bounds, wk, crit, qpt=qpt, **kw)
+                synchronize(dev)
+                errs.append(err_of(got, want))
+        e = max(errs + [e_ref])
+        print(f"packed kernel vs plain (B, R, C) = ({B}, {R}, {C}), sorted "
+              f"in the launch and by argsort, qpt "
+              f"{', '.join(map(str, qpts))}: max_abs_err {e}")
+        worst = max(worst, e)
     return worst
 
 
@@ -159,7 +216,16 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
     from repro_torch.core.workload import generate_workload, workload_stats
     from repro_torch.core.wrapper import MCTWrapper
     from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
     from repro_torch.kernels.rule_match import rule_match
+
+    packs = []
+    pack = ops.pack
+
+    def counted_pack(*a, **k):
+        packs.append(1)
+        return pack(*a, **k)
+    ops.pack = counted_pack         # the table is packed at upload only
 
     t0 = time.perf_counter()
     ruleset = generate_rules(n_rules, version=2, seed=42)
@@ -183,6 +249,7 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
     engine.match(encs[0])                 # first launch loads the module
     synchronize(dev)
 
+    n_packs = len(packs)
     rule_match.launches = 0
     wrap = MCTWrapper([engine], n_workers=2)
     wrap.start()
@@ -199,6 +266,11 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
           f"{launches}")
     if launches <= 0 or launches != len(batches):
         fail(f"kernel launches {launches} != batches {len(batches)}")
+    if len(packs) != n_packs:
+        fail(f"the table was packed {len(packs) - n_packs} times on the "
+             "main path; it is packed once, at upload")
+    print(f"packed tables: {n_packs} at upload (dense + plain engines), "
+          "0 on the main path")
 
     # every result equals the plain version's on one batch of its user query
     # and size (results come back in completion order)
@@ -251,36 +323,62 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
         print(f"stage medians, batch <= {size} ({len(ts)} batches): "
               + ", ".join(f"{k} {v:.1f}" for k, v in med.items()))
 
+    n_packs = len(packs)
     us = engine.reload(ruleset)
     again = [x.cpu().numpy() for x in engine.match(sub)]
     if not all(np.array_equal(a, g) for a, g in zip(again, got)):
         fail("results changed across a reload of the same rule set")
-    print(f"reload: {us:.1f} us device swap, results unchanged")
+    if len(packs) != n_packs + 1:
+        fail(f"reload packed the table {len(packs) - n_packs} times, not once")
+    ops.pack = pack
+    print(f"reload: {us:.1f} us device swap (table packed once), results "
+          "unchanged")
     return engine, all_enc, launches, n_q / wall
 
 
-def count_compares(q, mins, maxs) -> int:
-    """int32 compares the kernel does on these inputs: per (query, rule), two
-    for each criterion before the first failing one, and one or two for that
-    one (``v < min || v > max`` stops at the first true)."""
+def count_work(q, mins, maxs, crit_order=None, groups=()):
+    """Work these inputs need with the criteria tested in ``crit_order``
+    (default: the compiler's column order). Returns (compares, steps):
+    compares counts int32 compares per (query, rule) as two for each
+    criterion before the first failing one and one or two for that one
+    (``v < min || v > max`` stops at the first true); steps[g], for each
+    group of g consecutive queries (a warp's 32 * queries a thread), sums
+    over (group, rule) the criterion tests of the group's deepest query: a
+    warp walks a rule until all its queries have failed."""
     import torch
     from repro_torch.kernels.ref import MAX_ELEMS
+    if crit_order is not None:
+        idx = crit_order.long()
+        q, mins, maxs = q[:, idx], mins[:, idx], maxs[:, idx]
     B, C = q.shape
     R = mins.shape[0]
     chunk = max(1, MAX_ELEMS // (B * C))
     total = 0
+    steps = dict.fromkeys(groups, 0)
     qb = q[:, None, :]
     for s in range(0, R, chunk):
         lo = qb >= mins[None, s:s + chunk]
-        ok = lo & (qb <= maxs[None, s:s + chunk])
-        bad = ~ok
+        bad = ~(lo & (qb <= maxs[None, s:s + chunk]))
         first = bad.int().argmax(dim=-1)                    # (B, n)
         any_bad = bad.any(dim=-1)
         lo_first = lo.gather(-1, first[..., None])[..., 0]
         n = torch.where(any_bad, 2 * first + torch.where(lo_first, 2, 1),
                         2 * C)
         total += int(n.sum(dtype=torch.int64))
-    return total
+        depth = torch.where(any_bad, first + 1, C)
+        for g in groups:
+            steps[g] += int(depth.view(B // g, g, -1).amax(dim=1)
+                            .sum(dtype=torch.int64))
+    return total, steps
+
+
+def lex_order(q, cols):
+    """Batch order sorted lexicographically on the columns ``cols``."""
+    import torch
+    order = torch.arange(q.shape[0], device=q.device)
+    for c in reversed(cols):
+        order = order[torch.sort(q[order, c], stable=True).indices]
+    return order
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -295,11 +393,75 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_time(dev, engine, all_enc):
+def baseline_kernel(path: str, dt):
+    """Build another rule_match.cu with the earlier two-pass interface
+    (``rule_match_launch`` on criterion-major mins_t/maxs_t, tile_b, tile_r)
+    and return a function that runs it on criterion-major queries, as that
+    version's wrapper did."""
+    import torch
+    from repro_torch.kernels import rule_match as rm
+    so, log, seconds = rm.compile_library(Path(path))
+    lib = ctypes.CDLL(str(so))
+    lib.rule_match_launch.argtypes = ([ctypes.c_void_p] * 8
+                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.rule_match_launch.restype = ctypes.c_int
+    print(f"baseline build: {seconds:.1f} s from {path}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas (baseline): {line.strip()}")
+    C, R = dt.mins_t.shape
+
+    def run(qt, tile_b=256, tile_r=512):
+        B = qt.shape[1]
+        dev = qt.device
+        part_w = torch.empty((R // tile_r, B), dtype=torch.int32, device=dev)
+        part_i = torch.empty_like(part_w)
+        out_w = torch.empty((1, B), dtype=torch.int32, device=dev)
+        out_i = torch.empty_like(out_w)
+        err = lib.rule_match_launch(
+            qt.data_ptr(), dt.mins_t.data_ptr(), dt.maxs_t.data_ptr(),
+            dt.weights.data_ptr(), part_w.data_ptr(), part_i.data_ptr(),
+            out_w.data_ptr(), out_i.data_ptr(), C, B, R, tile_b, tile_r,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            fail(f"baseline kernel launch failed: CUDA error {err}")
+        return out_w[0], out_i[0]
+    return run
+
+
+def device_times(fn, reps: int = 10) -> dict:
+    """Device time a call spends in each kernel (torch.profiler, CUPTI),
+    and the wall time of the same calls, in ms a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"wall": wall * 1e3 / reps}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us and evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in ("rule_match_sort", "rule_match_runs",
+                                     "rule_match_reduce") if k in evt.key),
+                        "other")
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    out["device"] = sum(v for k, v in out.items() if k != "wall")
+    return out
+
+
+def phase_kernel_time(dev, engine, all_enc, baseline=None):
     import numpy as np
     import torch
-    from repro_torch.kernels.ref import rule_match_ref
-    from repro_torch.kernels.rule_match import rule_match
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rule_match as rm
+    from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
 
     props = torch.cuda.get_device_properties(dev)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -307,44 +469,134 @@ def phase_kernel_time(dev, engine, all_enc):
         * clock_mhz * 1e6
     dt = engine.dt
     C, Rp = dt.mins_t.shape
+    Rk = dt.bounds.shape[1]
     mins, maxs, w = dt.mins_t.T, dt.maxs_t.T, dt.weights[0]
+    crit = dt.crit_order
+    cols = crit.tolist()
+    lead = dt.lead_col
+    old = baseline_kernel(baseline, dt) if baseline else None
+    print(f"kernel criterion order: {cols}")
     rows = []
     for B in TIMED_BATCHES:
-        enc = np.resize(all_enc, (B, all_enc.shape[1]))
+        enc = np.resize(all_enc, (B, C))
         q = torch.as_tensor(enc, device=dev)
-        qt = q.T.contiguous()
-        run = lambda: rule_match(qt, dt.mins_t, dt.maxs_t, dt.weights,
-                                 tile_b=engine.tile_b, tile_r=engine.tile_r)
-        plain = lambda: rule_match_ref(q, mins, maxs, w)
-        kw, ki = run()
-        pw, pi = plain()
-        err = err_of((kw[0], ki[0]), (pw, pi))
-        for _ in range(3):
-            run()
+        order = torch.argsort(q[:, lead])
+        q_sorted = q[order].contiguous()
+
+        def packed(qq, **kw):
+            return lambda: rm.rule_match_packed(qq, dt.bounds, dt.weights_k,
+                                                crit, **kw)
+        runs = {   # "lane" is the main path's call: sort, kernel, unsort
+            "lane": lambda: ops.match_lane(q, dt),
+            "lane_qpt1": packed(q, sort_col=lead, qpt=1),
+            "argsort": lambda: torch.argsort(q[:, lead]),
+            "lane_argsort": lambda: rm.rule_match_packed(
+                q, dt.bounds, dt.weights_k, crit, torch.argsort(q[:, lead])),
+            "kernel_presorted": packed(q_sorted),
+            "kernel_unsorted": packed(q),
+            "lex_sort": lambda: lex_order(q, cols),
+            "lex_lane": lambda: rm.rule_match_packed(
+                q, dt.bounds, dt.weights_k, crit, lex_order(q, cols)),
+        }
+        want = rule_match_ref(q, mins, maxs, w)
+        plain = lambda: rule_match_packed_ref(q, dt.bounds, dt.weights_k,
+                                              crit)
+        errs = {k: err_of(runs[k](), want) for k in
+                ("lane", "lane_qpt1", "lane_argsort", "kernel_unsorted",
+                 "lex_lane")}
+        errs["kernel_presorted"] = err_of(runs["kernel_presorted"](),
+                                          (want[0][order], want[1][order]))
+        errs["plain"] = err_of(plain(), want)
+        if old:
+            qt = q.T.contiguous()
+            run_old = lambda: old(qt)
+            errs["baseline"] = err_of(run_old(), want)
+        err = max(errs.values())
+        for f in list(runs.values()) + ([run_old] if old else []):
+            for _ in range(3):
+                f()
         torch.cuda.synchronize(dev)
-        ms = cuda_ms(run, 20)
-        plain_ms = cuda_ms(plain, 3)
-        n_bytes = 4 * (2 * C * Rp + Rp + B * C + 2 * B)
-        n_ops = count_compares(q, mins, maxs)
+        # in turns: baseline, lane, lane, baseline
+        ms = {}
+        if old:
+            ms["baseline_a"] = cuda_ms(run_old, 20)
+        ms["lane_a"] = cuda_ms(runs["lane"], 20)
+        ms["lane_b"] = cuda_ms(runs["lane"], 20)
+        if old:
+            ms["baseline_b"] = cuda_ms(run_old, 20)
+        for k, f in runs.items():
+            if k != "lane":
+                ms[k] = cuda_ms(f, 20)
+        ms["plain"] = cuda_ms(plain, 3)
+        lane_ms = (ms["lane_a"] + ms["lane_b"]) / 2
+        dev_ms = device_times(runs["lane"])
+        comp_compiler, _ = count_work(q, mins, maxs)
+        comp_kernel, steps = count_work(q_sorted, mins, maxs, crit,
+                                        groups=(32, 64))
+        _, steps_unsorted = count_work(q, mins, maxs, crit, groups=(32, 64))
+        pairs = B * Rp
+        n_bytes = 8 * C * Rk + 4 * Rk + 4 * B * C + 8 * B
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / int32_per_s * 1e3
-        row = dict(B=B, R=Rp, C=C, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
+        ops_ms = comp_kernel / int32_per_s * 1e3
+        ops_ms_compiler = comp_compiler / int32_per_s * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        plan = rm._plans[(dev.index, C, B, Rk, 2)]
+        row = dict(B=B, R=Rp, C=C, ms=lane_ms, plain_ms=ms["plain"],
+                   bound_ms=bound_ms,
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   bytes=n_bytes, int32_compares=n_ops,
-                   compares_per_pair=n_ops / (B * Rp),
-                   int32_ops_per_s=int32_per_s, max_abs_err=err)
-        print(f"kernel time (B, R, C) = ({B}, {Rp}, {C}): {ms:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms by "
-              f"{row['bound_by']} (bytes {bytes_ms:.4f} ms, int32 compares "
-              f"{ops_ms:.4f} ms: {n_ops} at {int32_per_s:.4g}/s, "
-              f"{row['compares_per_pair']:.3f} a query-rule pair); "
-              f"max_abs_err {err}")
+                   bytes=n_bytes, int32_compares=comp_kernel,
+                   compares_per_pair=comp_kernel / pairs,
+                   compares_per_pair_compiler_order=comp_compiler / pairs,
+                   int32_ops_per_s=int32_per_s, max_abs_err=err,
+                   warp_tests_per_pair={
+                       "sorted_qpt1": steps[32] * 32 / pairs,
+                       "sorted_qpt2": steps[64] * 32 / pairs,
+                       "unsorted_qpt1": steps_unsorted[32] * 32 / pairs,
+                       "unsorted_qpt2": steps_unsorted[64] * 32 / pairs},
+                   times_ms=ms, device_ms=dev_ms, plan=plan)
+        print(f"kernel time (B, R, C) = ({B}, {Rp}, {C}): lane (sort + "
+              f"kernel + unsort, as the main path calls it) "
+              f"{ms['lane_a']:.4f} / {ms['lane_b']:.4f} ms; one query a "
+              f"thread {ms['lane_qpt1']:.4f} ms; with torch.argsort for the "
+              f"sort {ms['lane_argsort']:.4f} ms (argsort alone "
+              f"{ms['argsort']:.4f} ms); presorted copy, no sort or unsort "
+              f"{ms['kernel_presorted']:.4f} ms; unsorted batch "
+              f"{ms['kernel_unsorted']:.4f} ms; lexicographic sort "
+              f"{ms['lex_sort']:.4f} ms, its lane {ms['lex_lane']:.4f} ms; "
+              f"plain {ms['plain']:.4f} ms")
+        print("  device time a lane call (torch.profiler): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+              + f"; device busy {dev_ms['device'] / dev_ms['wall']:.1%} of "
+              "the wall time")
+        if old:
+            print(f"  baseline kernel (B, R, C) = ({B}, {Rp}, {C}): "
+                  f"{ms['baseline_a']:.4f} / {ms['baseline_b']:.4f} ms; "
+                  f"lane speed-up "
+                  f"{(ms['baseline_a'] + ms['baseline_b']) / 2 / lane_ms:.2f}x")
+        print(f"  bound {bound_ms:.4f} ms by {row['bound_by']} (bytes "
+              f"{bytes_ms:.4f} ms; int32 compares in kernel order "
+              f"{ops_ms:.4f} ms: {comp_kernel} at {int32_per_s:.4g}/s, "
+              f"{comp_kernel / pairs:.3f} a query-rule pair; in the "
+              f"compiler's order {ops_ms_compiler:.4f} ms, "
+              f"{comp_compiler / pairs:.3f} a pair); lane at "
+              f"{bound_ms / lane_ms:.1%} of it; max_abs_err {err}")
+        print("  tests a warp executes per 32 pairs: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          row["warp_tests_per_pair"].items()))
+        print(f"  grid: {plan['n_runs']} rule runs of {plan['run']} x "
+              f"{plan['n_btiles']} batch tiles of {plan['threads']} threads, "
+              f"{plan['blocks_per_sm']} blocks/SM on {plan['sms']} SMs, "
+              f"{plan['smem']} B dynamic shared memory a block")
         rows.append(row)
     return rows
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="another rule_match.cu (the "
+                        "earlier two-pass interface) to time in turns with "
+                        "this one")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card: chip_smoke.py drives the port on the card only")
@@ -360,7 +612,8 @@ def main() -> None:
     rm.build()
     print(f"build: {rm.build_info['seconds']:.1f} s -> {rm.build_info['path']}")
     for line in rm.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill",
+                                   "smem")):
             print(f"  ptxas: {line.strip()}")
 
     worst = phase_kernel_vs_plain(dev)
@@ -369,7 +622,7 @@ def main() -> None:
 
     engine, all_enc, launches, qps = phase_main_path(
         dev, N_RULES, n_users=16, n_check=2048)
-    timed = phase_kernel_time(dev, engine, all_enc)
+    timed = phase_kernel_time(dev, engine, all_enc, args.baseline)
     worst = max([worst] + [r["max_abs_err"] for r in timed])
     if worst != 0:
         fail(f"kernel disagrees with its plain version (max_abs_err {worst})")
@@ -380,6 +633,8 @@ def main() -> None:
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": {"B": t["B"], "R": t["R"], "C": t["C"]},
+        "ms_by_B": {str(r["B"]): r["ms"] for r in timed},
+        "bound_ms_by_B": {str(r["B"]): r["bound_ms"] for r in timed},
         "main_path_queries_per_s": qps}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,5 +1,6 @@
-"""Wrappers around the rule-match kernel: padding, layout transposes,
-engine-lane splitting, and the partitioned (NFA-prefix-pruning analog) mode.
+"""Wrappers around the rule-match kernel: padding, the packed table, batch
+sorting, engine-lane splitting, and the partitioned (NFA-prefix-pruning
+analog) mode.
 
 Port of ``repro.kernels.ops``. ``match_rules`` is the public op.
 ``partitioned=True`` buckets queries by the partition criterion (airport) —
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref as ref_mod
-from repro_torch.kernels.rule_match import rule_match
+from repro_torch.kernels.rule_match import (criterion_order, pack,
+                                            rule_match_packed)
 
 _BIG = 2 ** 30
 MAX_GATHER_BYTES = 1 << 30   # bounds gathered by one partitioned-match chunk
@@ -31,13 +33,18 @@ def _pad_to(x, m, axis, value):
 
 
 class DeviceRuleTable(NamedTuple):
-    """Device-resident compiled rule table (criterion-major layouts)."""
+    """Device-resident compiled rule table (criterion-major layouts), and
+    the kernel's packed form of it (``rule_match.pack``)."""
     mins_t: torch.Tensor     # (C, Rp) int32
     maxs_t: torch.Tensor     # (C, Rp)
     weights: torch.Tensor    # (1, Rp) (-1 padding)
     decisions: torch.Tensor  # (Rp,)
     rule_ids: torch.Tensor   # (Rp,)
     n_rules: int
+    crit_order: torch.Tensor  # (C,) int32: the kernel's criterion order
+    bounds: torch.Tensor      # (C, Rp', 2) (base, span), rows in crit_order
+    weights_k: torch.Tensor   # (Rp',) -1 where a rule can never match
+    lead_col: int             # crit_order[0]: the batch's sort key
     # partitioned-mode blocks (optional)
     part_mins: Optional[torch.Tensor] = None   # (NP, Pmax, C)
     part_maxs: Optional[torch.Tensor] = None
@@ -52,8 +59,10 @@ def device_table(table, tile_r: int = 512, partitioned: bool = False,
     """Upload a CompiledRuleTable; optionally build partition blocks.
 
     Padding rules never match (min 1 > max 0) and carry weight -1, decision
-    0 and rule id -1. The partition blocks are gathered on the device, in
-    place, so the host never holds the (NP, Pmax, C) copies.
+    0 and rule id -1. The kernel's criterion order is estimated from the
+    unpadded table and the packed table built here, once per upload. The
+    partition blocks are gathered on the device, in place, so the host never
+    holds the (NP, Pmax, C) copies.
     """
     dev = resolve_device(device)
 
@@ -66,6 +75,9 @@ def device_table(table, tile_r: int = 512, partitioned: bool = False,
     wp = _pad_to(w[None, :], tile_r, 1, -1)
     dec = _pad_to(put(table.decisions), tile_r, 0, 0)
     rid = _pad_to(put(table.rule_ids), tile_r, 0, -1)
+    n = table.n_rules
+    crit = criterion_order(mins_t[:, :n], maxs_t[:, :n])
+    bounds, weights_k = pack(mins_t, maxs_t, wp, crit)
 
     kw = {}
     if partitioned:
@@ -93,7 +105,9 @@ def device_table(table, tile_r: int = 512, partitioned: bool = False,
 
     return DeviceRuleTable(mins_t=mins_t, maxs_t=maxs_t, weights=wp,
                            decisions=dec, rule_ids=rid,
-                           n_rules=table.n_rules, **kw)
+                           n_rules=table.n_rules, crit_order=crit,
+                           bounds=bounds, weights_k=weights_k,
+                           lead_col=int(crit[0]), **kw)
 
 
 def _lookup(dt: DeviceRuleTable, w, idx):
@@ -109,11 +123,12 @@ def match_rules(queries, dt: DeviceRuleTable, *, tile_b: int = 256,
     """queries: (B, C) int32 on the table's device. Returns (decision, weight,
     rule_id), (B,) int32 each.
 
-    ``backend="kernel"`` runs the rule-match kernel (its plain version for
-    CPU tensors), ``"ref"`` the plain version on the whole padded batch.
-    n_engines splits the padded batch into that many kernel lanes (the
-    paper's 'NFA evaluation engines per kernel' axis); the outputs do not
-    depend on it.
+    ``backend="kernel"`` runs the rule-match kernel on the packed table
+    (its plain version for CPU tensors), one launch per lane, ``"ref"`` the
+    plain version on the whole padded batch. n_engines splits the padded
+    batch into that many kernel lanes (the paper's 'NFA evaluation engines
+    per kernel' axis); the outputs do not depend on it. tile_r is the
+    table's padding (``device_table``); the kernel tiles the rules itself.
     """
     if backend not in ("kernel", "ref"):
         raise ValueError(f"backend must be 'kernel' or 'ref', not {backend!r}")
@@ -125,12 +140,19 @@ def match_rules(queries, dt: DeviceRuleTable, *, tile_b: int = 256,
         w, idx = ref_mod.rule_match_ref(qp, dt.mins_t.T, dt.maxs_t.T,
                                         dt.weights[0])
     else:
-        outs = [rule_match(lane.T.contiguous(), dt.mins_t, dt.maxs_t,
-                           dt.weights, tile_b=tile_b, tile_r=tile_r)
-                for lane in qp.split(Bp // n_engines, dim=0)]
-        w = torch.cat([bw[0] for bw, _ in outs])
-        idx = torch.cat([bi[0] for _, bi in outs])
+        outs = [match_lane(lane, dt) for lane in qp.split(Bp // n_engines)]
+        w = torch.cat([bw for bw, _ in outs])
+        idx = torch.cat([bi for _, bi in outs])
     return _lookup(dt, w[:B], idx[:B])
+
+
+def match_lane(lane, dt: DeviceRuleTable):
+    """One engine lane on the packed table: the kernel takes the lane's
+    queries sorted by their code in the leading criterion, so that a warp's
+    queries pass or fail it together, and writes the results back in the
+    lane's order. lane: (B, C) int32. Returns (best_w (B,), best_i (B,))."""
+    return rule_match_packed(lane, dt.bounds, dt.weights_k, dt.crit_order,
+                             sort_col=dt.lead_col)
 
 
 def match_rules_partitioned(queries, dt: DeviceRuleTable):

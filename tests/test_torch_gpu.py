@@ -1,4 +1,4 @@
-"""The CUDA rule-match kernel against its plain PyTorch version on the card.
+"""The CUDA rule-match kernel against its plain PyTorch versions on the card.
 
 Marked ``gpu``: each test asks for the ``cuda_device`` fixture, which skips
 with a reason where there is no card. This file imports neither JAX nor the
@@ -16,7 +16,7 @@ from repro_torch.core.engine import ErbiumEngine
 from repro_torch.core.rules import generate_queries, generate_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels import rule_match as rm
-from repro_torch.kernels.ref import rule_match_ref
+from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
 
 SHAPES = [(64, 128, 8, 64, 128), (128, 256, 26, 64, 128),
           (256, 512, 31, 256, 512), (32, 512, 3, 32, 256),
@@ -102,8 +102,89 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     w = torch.zeros((1, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="criteria"):
         rm.rule_match(q, r, r, w, tile_b=32, tile_r=64)
-    dt = ops.device_table(compile_rules(generate_rules(50, version=2, seed=0)),
-                          tile_r=64, device=dev)
-    with pytest.raises(ValueError, match="criteria"):
-        ops.match_rules(torch.zeros((64, 31), dtype=torch.int32, device=dev),
-                        dt, tile_b=2048, tile_r=64)
+    C = 33
+    r = torch.zeros((C, 64), dtype=torch.int32, device=dev)
+    crit = torch.arange(C, dtype=torch.int32, device=dev)
+    bounds, wk = rm.pack(r, r, r[0], crit)
+    with pytest.raises(ValueError, match="criteria"):   # 2 a thread: C <= 32
+        rm.rule_match_packed(torch.zeros((64, C), dtype=torch.int32,
+                                         device=dev), bounds, wk, crit, qpt=2)
+
+
+def _packed_case(dev, B, R, C, seed, weight_max=100):
+    q, mins, maxs, w = (torch.as_tensor(a, device=dev) for a in _random_tables(
+        np.random.default_rng(seed), B, R, C, weight_max))
+    crit = rm.criterion_order(mins.T, maxs.T)
+    bounds, wk = rm.pack(mins.T, maxs.T, w, crit)
+    return q, mins, maxs, w, crit, bounds, wk
+
+
+PACKED = ([(B, R, C) for B, R, C, _, _ in SHAPES]
+          + [(300, 1000, 31), (256, 4102, 31), (77, 999, 13)]  # ragged R, B
+          + [(9000, 3000, 31)]              # above SORT_MAX: argsort sorts
+          + [(512, 3000, C) for C in (1, 8, 31, 32, 33, 64)])
+# one query a thread everywhere, two where the kernel takes them (C <= 32)
+PACKED_QPT = [(*case, qpt) for case in PACKED for qpt in (1, 2)
+              if qpt == 1 or case[2] <= 32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,R,C,qpt", PACKED_QPT)
+def test_packed_kernel_matches_plain(cuda_device, B, R, C, qpt):
+    """The packed kernel, batch sorted in the launch or by a given order,
+    against the packed plain version and rule_match_ref, exactly; stage
+    width 64 does not divide R = 1000, 4102 or the padded 999."""
+    q, mins, maxs, w, crit, bounds, wk = _packed_case(cuda_device, B, R, C,
+                                                      B + R + C)
+    lead = int(crit[0])
+    pw, pi = rule_match_packed_ref(q, bounds, wk, crit)
+    rw, ri = rule_match_ref(q, mins, maxs, w)
+    for kw in (dict(sort_col=lead), dict(order=torch.argsort(q[:, lead]))):
+        before = rm.rule_match.launches
+        kw_, ki = rm.rule_match_packed(q, bounds, wk, crit, qpt=qpt, **kw)
+        torch.cuda.synchronize(cuda_device)
+        assert rm.rule_match.launches == before + 1
+        for got, want in ((kw_, pw), (ki, pi), (kw_, rw), (ki, ri)):
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_packed_kernel_strided_queries_and_ties(cuda_device):
+    """Queries read through strides (a transposed view), and identical rules
+    in every run of rules: the lowest index wins everywhere."""
+    dev = cuda_device
+    q, mins, maxs, w, crit, bounds, wk = _packed_case(dev, 600, 20_000, 31, 5,
+                                                      weight_max=3)
+    qt = q.T.contiguous()
+    kw, ki = rm.rule_match_packed(qt.T, bounds, wk, crit)
+    rw, ri = rule_match_ref(q, mins, maxs, w)
+    assert torch.equal(kw, rw) and torch.equal(ki, ri)
+    C = 4
+    zeros = torch.zeros((C, 10_000), dtype=torch.int32, device=dev)
+    crit = torch.arange(C, dtype=torch.int32, device=dev)
+    bounds, wk = rm.pack(zeros, zeros + 10, zeros[0] + 7, crit)
+    bw, bi = rm.rule_match_packed(torch.zeros((300, C), dtype=torch.int32,
+                                              device=dev), bounds, wk, crit)
+    assert bool((bi == 0).all()) and bool((bw == 7).all())
+
+
+@pytest.mark.gpu
+def test_refused_launch_raises_and_never_falls_back(cuda_device, monkeypatch):
+    """Past the wrapper's checks, a launch the library refuses (65 criteria)
+    raises; neither plain version is called."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(rm.ref_mod, "rule_match_ref", forbidden)
+    monkeypatch.setattr(rm.ref_mod, "rule_match_packed_ref", forbidden)
+    monkeypatch.setattr(rm, "MAX_CRIT", 128)
+    dev = cuda_device
+    C = 65
+    r = torch.zeros((C, 64), dtype=torch.int32, device=dev)
+    crit = torch.arange(C, dtype=torch.int32, device=dev)
+    bounds, wk = rm.pack(r, r, r[0], crit)
+    before = rm.rule_match.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rm.rule_match_packed(torch.zeros((32, C), dtype=torch.int32,
+                                         device=dev), bounds, wk, crit, qpt=1)
+    assert rm.rule_match.launches == before
