@@ -2,9 +2,6 @@
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-To time the kernel against another build of it in the same run (for
-example an earlier commit's source):
-    python3 chip_smoke.py --baseline path/to/old/rule_match.cu
 
 Phases, in order; any failure exits non-zero:
   1. device: name, count and `nvidia-smi` name + power limit;
@@ -14,24 +11,21 @@ Phases, in order; any failure exits non-zero:
      random tables up to (B, R, C) = (4096, 160256, 31) through the Pallas
      signature (packing on the fly), a tie-break case, a no-match case,
      n_engines = 1, 2, 4, and the packed entry with a sorted batch at ragged
-     R and B, C = 1..64 and one and two queries a thread;
+     R and B and C = 1..64;
   4. main path at the paper's scale: 160k v2 rules -> compile_rules ->
      ErbiumEngine (table packed once at upload) -> 16 user queries batched
      by paper_policy through MCTWrapper(n_workers=2), checked against the
      plain version on the card, cpu_match_numpy and the partitioned engine,
      plus one hot reload;
   5. kernel time (CUDA events) at 160k rules and B = 256, 1024, 4096: the
-     main path's lane (sort, kernel, unsort) and its parts, one against two
-     queries a thread, one-key against lexicographic sorting, the plain
-     version, the work the data needs in the compiler's and the kernel's
+     main path's lane (sort, kernel, unsort) and its parts, the plain
+     versions, the work the data needs in the compiler's and the kernel's
      criterion order, and the least time the card could take.
 It then prints one JSON line of kernel results and, last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -47,6 +41,7 @@ REPLACES = "src/repro/kernels/rule_match.py:53"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT32_LANES_PER_SM = 64            # Hopper SM: 64 INT32 units, one op a clock
 TIMED_BATCHES = (256, 1024, 4096)   # the summary line reports 1024
+LANE_TURNS = 4                      # lane timings, 20 calls each
 
 
 def fail(msg: str) -> None:
@@ -146,7 +141,7 @@ def phase_kernel_vs_plain(dev) -> int:
     qd = put(qn)
     want = ops.match_rules(qd, dt, backend="ref")
     for n_eng in (1, 2, 4):
-        got = ops.match_rules(qd, dt, tile_b=128, tile_r=512, n_engines=n_eng)
+        got = ops.match_rules(qd, dt, n_engines=n_eng)
         e = err_of(got, want)
         print(f"match_rules n_engines={n_eng}: max_abs_err {e}")
         worst = max(worst, e)
@@ -184,17 +179,14 @@ def phase_packed_vs_plain(dev) -> int:
         order = torch.argsort(q[:, lead])
         want = rule_match_packed_ref(q, bounds, wk, crit)
         e_ref = err_of(want, rule_match_ref(q, mins, maxs, w))
-        errs = []
-        qpts = (1, 2) if C <= rm.MAX_CRIT_QPT2 else (1,)
-        for qpt in qpts:
-            for kw in (dict(sort_col=lead), dict(order=order)):
-                got = rm.rule_match_packed(q, bounds, wk, crit, qpt=qpt, **kw)
-                synchronize(dev)
-                errs.append(err_of(got, want))
-        e = max(errs + [e_ref])
+        errs = [e_ref]
+        for kw in (dict(sort_col=lead), dict(order=order)):
+            got = rm.rule_match_packed(q, bounds, wk, crit, **kw)
+            synchronize(dev)
+            errs.append(err_of(got, want))
+        e = max(errs)
         print(f"packed kernel vs plain (B, R, C) = ({B}, {R}, {C}), sorted "
-              f"in the launch and by argsort, qpt "
-              f"{', '.join(map(str, qpts))}: max_abs_err {e}")
+              f"in the launch and by argsort: max_abs_err {e}")
         worst = max(worst, e)
     return worst
 
@@ -337,14 +329,21 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
 
 
 def count_work(q, mins, maxs, crit_order=None, groups=()):
-    """Work these inputs need with the criteria tested in ``crit_order``
-    (default: the compiler's column order). Returns (compares, steps):
-    compares counts int32 compares per (query, rule) as two for each
-    criterion before the first failing one and one or two for that one
-    (``v < min || v > max`` stops at the first true); steps[g], for each
-    group of g consecutive queries (a warp's 32 * queries a thread), sums
-    over (group, rule) the criterion tests of the group's deepest query: a
-    warp walks a rule until all its queries have failed."""
+    """int32 compares these inputs need with the criteria tested in
+    ``crit_order`` (default: the compiler's column order). A criterion's
+    test ``v < min || v > max`` is two compares, or one when the first is
+    true. Returns (per_pair, shared, steps):
+
+    - per_pair tests every (query, rule) pair on its own, up to its first
+      failing criterion;
+    - shared tests the leading criterion once per (distinct leading code of
+      the batch, rule), since queries with one code pass or fail it
+      together, and the other criteria, up to the first failing one, only
+      for the pairs that pass the leading one: the least any mapping needs;
+    - steps[g], for each group of g consecutive queries (a warp's 32 *
+      queries a thread), sums over (group, rule) the criterion tests of the
+      group's deepest query: a warp walks a rule until all its queries have
+      failed."""
     import torch
     from repro_torch.kernels.ref import MAX_ELEMS
     if crit_order is not None:
@@ -353,7 +352,7 @@ def count_work(q, mins, maxs, crit_order=None, groups=()):
     B, C = q.shape
     R = mins.shape[0]
     chunk = max(1, MAX_ELEMS // (B * C))
-    total = 0
+    per_pair = shared = 0
     steps = dict.fromkeys(groups, 0)
     qb = q[:, None, :]
     for s in range(0, R, chunk):
@@ -364,21 +363,19 @@ def count_work(q, mins, maxs, crit_order=None, groups=()):
         lo_first = lo.gather(-1, first[..., None])[..., 0]
         n = torch.where(any_bad, 2 * first + torch.where(lo_first, 2, 1),
                         2 * C)
-        total += int(n.sum(dtype=torch.int64))
+        per_pair += int(n.sum(dtype=torch.int64))
+        past_lead = ~any_bad | (first > 0)      # passed the leading test: 2
+        shared += int(torch.where(past_lead, n - 2, 0).sum(dtype=torch.int64))
         depth = torch.where(any_bad, first + 1, C)
         for g in groups:
             steps[g] += int(depth.view(B // g, g, -1).amax(dim=1)
                             .sum(dtype=torch.int64))
-    return total, steps
-
-
-def lex_order(q, cols):
-    """Batch order sorted lexicographically on the columns ``cols``."""
-    import torch
-    order = torch.arange(q.shape[0], device=q.device)
-    for c in reversed(cols):
-        order = order[torch.sort(q[order, c], stable=True).indices]
-    return order
+    codes = torch.unique(q[:, 0])
+    step = max(1, MAX_ELEMS // len(codes))
+    for s in range(0, R, step):
+        lo = codes[:, None] >= mins[None, s:s + step, 0]
+        shared += int(torch.where(lo, 2, 1).sum(dtype=torch.int64))
+    return per_pair, shared, steps
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -391,42 +388,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def baseline_kernel(path: str, dt):
-    """Build another rule_match.cu with the earlier two-pass interface
-    (``rule_match_launch`` on criterion-major mins_t/maxs_t, tile_b, tile_r)
-    and return a function that runs it on criterion-major queries, as that
-    version's wrapper did."""
-    import torch
-    from repro_torch.kernels import rule_match as rm
-    so, log, seconds = rm.compile_library(Path(path))
-    lib = ctypes.CDLL(str(so))
-    lib.rule_match_launch.argtypes = ([ctypes.c_void_p] * 8
-                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.rule_match_launch.restype = ctypes.c_int
-    print(f"baseline build: {seconds:.1f} s from {path}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas (baseline): {line.strip()}")
-    C, R = dt.mins_t.shape
-
-    def run(qt, tile_b=256, tile_r=512):
-        B = qt.shape[1]
-        dev = qt.device
-        part_w = torch.empty((R // tile_r, B), dtype=torch.int32, device=dev)
-        part_i = torch.empty_like(part_w)
-        out_w = torch.empty((1, B), dtype=torch.int32, device=dev)
-        out_i = torch.empty_like(out_w)
-        err = lib.rule_match_launch(
-            qt.data_ptr(), dt.mins_t.data_ptr(), dt.maxs_t.data_ptr(),
-            dt.weights.data_ptr(), part_w.data_ptr(), part_i.data_ptr(),
-            out_w.data_ptr(), out_i.data_ptr(), C, B, R, tile_b, tile_r,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            fail(f"baseline kernel launch failed: CUDA error {err}")
-        return out_w[0], out_i[0]
-    return run
 
 
 def device_times(fn, reps: int = 10) -> dict:
@@ -456,7 +417,7 @@ def device_times(fn, reps: int = 10) -> dict:
     return out
 
 
-def phase_kernel_time(dev, engine, all_enc, baseline=None):
+def phase_kernel_time(dev, engine, all_enc):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -472,10 +433,8 @@ def phase_kernel_time(dev, engine, all_enc, baseline=None):
     Rk = dt.bounds.shape[1]
     mins, maxs, w = dt.mins_t.T, dt.maxs_t.T, dt.weights[0]
     crit = dt.crit_order
-    cols = crit.tolist()
     lead = dt.lead_col
-    old = baseline_kernel(baseline, dt) if baseline else None
-    print(f"kernel criterion order: {cols}")
+    print(f"kernel criterion order: {crit.tolist()}")
     rows = []
     for B in TIMED_BATCHES:
         enc = np.resize(all_enc, (B, C))
@@ -483,70 +442,63 @@ def phase_kernel_time(dev, engine, all_enc, baseline=None):
         order = torch.argsort(q[:, lead])
         q_sorted = q[order].contiguous()
 
-        def packed(qq, **kw):
+        def packed(qq):
             return lambda: rm.rule_match_packed(qq, dt.bounds, dt.weights_k,
-                                                crit, **kw)
+                                                crit)
         runs = {   # "lane" is the main path's call: sort, kernel, unsort
             "lane": lambda: ops.match_lane(q, dt),
-            "lane_qpt1": packed(q, sort_col=lead, qpt=1),
             "argsort": lambda: torch.argsort(q[:, lead]),
             "lane_argsort": lambda: rm.rule_match_packed(
                 q, dt.bounds, dt.weights_k, crit, torch.argsort(q[:, lead])),
             "kernel_presorted": packed(q_sorted),
             "kernel_unsorted": packed(q),
-            "lex_sort": lambda: lex_order(q, cols),
-            "lex_lane": lambda: rm.rule_match_packed(
-                q, dt.bounds, dt.weights_k, crit, lex_order(q, cols)),
         }
-        want = rule_match_ref(q, mins, maxs, w)
-        plain = lambda: rule_match_packed_ref(q, dt.bounds, dt.weights_k,
-                                              crit)
+        plain = lambda: rule_match_ref(q, mins, maxs, w)
+        plain_packed = lambda: rule_match_packed_ref(q, dt.bounds,
+                                                     dt.weights_k, crit)
+        want = plain()
         errs = {k: err_of(runs[k](), want) for k in
-                ("lane", "lane_qpt1", "lane_argsort", "kernel_unsorted",
-                 "lex_lane")}
+                ("lane", "lane_argsort", "kernel_unsorted")}
         errs["kernel_presorted"] = err_of(runs["kernel_presorted"](),
                                           (want[0][order], want[1][order]))
-        errs["plain"] = err_of(plain(), want)
-        if old:
-            qt = q.T.contiguous()
-            run_old = lambda: old(qt)
-            errs["baseline"] = err_of(run_old(), want)
+        errs["plain_packed"] = err_of(plain_packed(), want)
         err = max(errs.values())
-        for f in list(runs.values()) + ([run_old] if old else []):
+        for f in runs.values():
             for _ in range(3):
                 f()
         torch.cuda.synchronize(dev)
-        # in turns: baseline, lane, lane, baseline
+        lane_turns = []
         ms = {}
-        if old:
-            ms["baseline_a"] = cuda_ms(run_old, 20)
-        ms["lane_a"] = cuda_ms(runs["lane"], 20)
-        ms["lane_b"] = cuda_ms(runs["lane"], 20)
-        if old:
-            ms["baseline_b"] = cuda_ms(run_old, 20)
-        for k, f in runs.items():
-            if k != "lane":
-                ms[k] = cuda_ms(f, 20)
+        for _ in range(LANE_TURNS):   # lane turns between the other runs
+            lane_turns.append(cuda_ms(runs["lane"], 20))
+            for k, f in runs.items():
+                if k != "lane":
+                    ms.setdefault(k, []).append(cuda_ms(f, 20))
+        ms = {k: float(np.median(v)) for k, v in ms.items()}
+        ms["lane_turns"] = lane_turns
         ms["plain"] = cuda_ms(plain, 3)
-        lane_ms = (ms["lane_a"] + ms["lane_b"]) / 2
+        ms["plain_packed"] = cuda_ms(plain_packed, 3)
+        lane_ms = float(np.median(lane_turns))
         dev_ms = device_times(runs["lane"])
-        comp_compiler, _ = count_work(q, mins, maxs)
-        comp_kernel, steps = count_work(q_sorted, mins, maxs, crit,
-                                        groups=(32, 64))
-        _, steps_unsorted = count_work(q, mins, maxs, crit, groups=(32, 64))
+        per_pair_compiler, _, _ = count_work(q, mins, maxs)
+        per_pair, shared, steps = count_work(q_sorted, mins, maxs, crit,
+                                             groups=(32, 64))
+        _, _, steps_unsorted = count_work(q, mins, maxs, crit,
+                                          groups=(32, 64))
         pairs = B * Rp
         n_bytes = 8 * C * Rk + 4 * Rk + 4 * B * C + 8 * B
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = comp_kernel / int32_per_s * 1e3
-        ops_ms_compiler = comp_compiler / int32_per_s * 1e3
+        ops_ms = shared / int32_per_s * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        plan = rm._plans[(dev.index, C, B, Rk, 2)]
+        plan = rm.plan(dev, C, B, Rk)
         row = dict(B=B, R=Rp, C=C, ms=lane_ms, plain_ms=ms["plain"],
-                   bound_ms=bound_ms,
+                   plain_packed_ms=ms["plain_packed"], bound_ms=bound_ms,
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   bytes=n_bytes, int32_compares=comp_kernel,
-                   compares_per_pair=comp_kernel / pairs,
-                   compares_per_pair_compiler_order=comp_compiler / pairs,
+                   bytes=n_bytes, int32_compares=shared,
+                   compares_per_pair=shared / pairs,
+                   compares_per_pair_each_pair=per_pair / pairs,
+                   compares_per_pair_compiler_order=per_pair_compiler / pairs,
+                   distinct_lead_codes=int(torch.unique(q[:, lead]).numel()),
                    int32_ops_per_s=int32_per_s, max_abs_err=err,
                    warp_tests_per_pair={
                        "sorted_qpt1": steps[32] * 32 / pairs,
@@ -555,48 +507,42 @@ def phase_kernel_time(dev, engine, all_enc, baseline=None):
                        "unsorted_qpt2": steps_unsorted[64] * 32 / pairs},
                    times_ms=ms, device_ms=dev_ms, plan=plan)
         print(f"kernel time (B, R, C) = ({B}, {Rp}, {C}): lane (sort + "
-              f"kernel + unsort, as the main path calls it) "
-              f"{ms['lane_a']:.4f} / {ms['lane_b']:.4f} ms; one query a "
-              f"thread {ms['lane_qpt1']:.4f} ms; with torch.argsort for the "
-              f"sort {ms['lane_argsort']:.4f} ms (argsort alone "
+              f"kernel + unsort, as the main path calls it) median "
+              f"{lane_ms:.4f} ms of {LANE_TURNS} turns ("
+              + " / ".join(f"{t:.4f}" for t in lane_turns)
+              + f" ms); with torch.argsort for the sort "
+              f"{ms['lane_argsort']:.4f} ms (argsort alone "
               f"{ms['argsort']:.4f} ms); presorted copy, no sort or unsort "
               f"{ms['kernel_presorted']:.4f} ms; unsorted batch "
-              f"{ms['kernel_unsorted']:.4f} ms; lexicographic sort "
-              f"{ms['lex_sort']:.4f} ms, its lane {ms['lex_lane']:.4f} ms; "
-              f"plain {ms['plain']:.4f} ms")
+              f"{ms['kernel_unsorted']:.4f} ms; plain (rule_match_ref) "
+              f"{ms['plain']:.4f} ms; packed plain (rule_match_packed_ref) "
+              f"{ms['plain_packed']:.4f} ms")
         print("  device time a lane call (torch.profiler): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
               + f"; device busy {dev_ms['device'] / dev_ms['wall']:.1%} of "
               "the wall time")
-        if old:
-            print(f"  baseline kernel (B, R, C) = ({B}, {Rp}, {C}): "
-                  f"{ms['baseline_a']:.4f} / {ms['baseline_b']:.4f} ms; "
-                  f"lane speed-up "
-                  f"{(ms['baseline_a'] + ms['baseline_b']) / 2 / lane_ms:.2f}x")
         print(f"  bound {bound_ms:.4f} ms by {row['bound_by']} (bytes "
-              f"{bytes_ms:.4f} ms; int32 compares in kernel order "
-              f"{ops_ms:.4f} ms: {comp_kernel} at {int32_per_s:.4g}/s, "
-              f"{comp_kernel / pairs:.3f} a query-rule pair; in the "
-              f"compiler's order {ops_ms_compiler:.4f} ms, "
-              f"{comp_compiler / pairs:.3f} a pair); lane at "
-              f"{bound_ms / lane_ms:.1%} of it; max_abs_err {err}")
+              f"{bytes_ms:.4f} ms; int32 compares these inputs need "
+              f"{ops_ms:.4f} ms: {shared} at {int32_per_s:.4g}/s, "
+              f"{shared / pairs:.3f} a query-rule pair with the leading "
+              f"criterion tested once per ({row['distinct_lead_codes']} "
+              f"distinct leading codes) x rule; each pair on its own "
+              f"{per_pair / pairs:.3f} a pair in kernel order, "
+              f"{per_pair_compiler / pairs:.3f} in the compiler's order); "
+              f"lane at {bound_ms / lane_ms:.1%} of it; max_abs_err {err}")
         print("  tests a warp executes per 32 pairs: "
               + ", ".join(f"{k} {v:.3f}" for k, v in
                           row["warp_tests_per_pair"].items()))
         print(f"  grid: {plan['n_runs']} rule runs of {plan['run']} x "
-              f"{plan['n_btiles']} batch tiles of {plan['threads']} threads, "
-              f"{plan['blocks_per_sm']} blocks/SM on {plan['sms']} SMs, "
-              f"{plan['smem']} B dynamic shared memory a block")
+              f"{plan['n_btiles']} batch tiles of {plan['threads']} threads "
+              f"({plan['qpt']} queries a thread), {plan['blocks_per_sm']} "
+              f"blocks/SM on {plan['sms']} SMs, {plan['smem']} B dynamic "
+              "shared memory a block")
         rows.append(row)
     return rows
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--baseline", help="another rule_match.cu (the "
-                        "earlier two-pass interface) to time in turns with "
-                        "this one")
-    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card: chip_smoke.py drives the port on the card only")
@@ -622,7 +568,7 @@ def main() -> None:
 
     engine, all_enc, launches, qps = phase_main_path(
         dev, N_RULES, n_users=16, n_check=2048)
-    timed = phase_kernel_time(dev, engine, all_enc, args.baseline)
+    timed = phase_kernel_time(dev, engine, all_enc)
     worst = max([worst] + [r["max_abs_err"] for r in timed])
     if worst != 0:
         fail(f"kernel disagrees with its plain version (max_abs_err {worst})")
@@ -631,6 +577,7 @@ def main() -> None:
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "plain_packed_ms": t["plain_packed_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "shape": {"B": t["B"], "R": t["R"], "C": t["C"]},
         "ms_by_B": {str(r["B"]): r["ms"] for r in timed},

@@ -28,12 +28,12 @@ from repro_torch.kernels import ops
 
 class ErbiumEngine:
     def __init__(self, table: CompiledRuleTable, *, device="cuda",
-                 n_engines: int = 1, tile_b: int = 256, tile_r: int = 512,
+                 n_engines: int = 1, tile_r: int = 512,
                  backend: str = "kernel", partitioned: bool = False):
         self.device = resolve_device(device)
         self.table = table
         self.n_engines = n_engines
-        self.tile_b, self.tile_r = tile_b, tile_r
+        self.tile_r = tile_r     # the device table's padding
         self.backend = backend
         self.partitioned = partitioned
         self.dt = ops.device_table(table, tile_r=tile_r,
@@ -52,8 +52,7 @@ class ErbiumEngine:
         q = torch.as_tensor(encoded, dtype=torch.int32, device=self.device)
         if self.partitioned:
             return ops.match_rules_partitioned(q, self.dt)
-        return ops.match_rules(q, self.dt, tile_b=self.tile_b,
-                               tile_r=self.tile_r, backend=self.backend,
+        return ops.match_rules(q, self.dt, backend=self.backend,
                                n_engines=self.n_engines)
 
     def encode_queries_host(self, queries: Sequence[Dict[str, int]]

@@ -46,9 +46,11 @@
 //    halving the passes over the table), __launch_bounds__ keeping 512
 //    threads resident on an SM. The grid is sized from the SM count and
 //    that occupancy: each batch tile gets `n_runs` blocks, each walking one
-//    contiguous run of rules (a multiple of 4) of at most 512 rules, so the
-//    data-dependent work of large batches spreads over several waves and
-//    the block scheduler balances it.
+//    contiguous run of rules (a multiple of 4) of at most 1024 rules, so
+//    the data-dependent work of large batches spreads over several waves
+//    and the block scheduler balances it (on the main path's batches one
+//    wave of long runs is slower at B = 4096, runs of 256 or 512 rules
+//    cost more partials; benchmarks/torch_rule_match_grid.py times them).
 //  - Each block walks its rules in increasing index order and updates a
 //    query's best only on a strictly greater weight, so it keeps the lowest
 //    index among ties. A second pass reduces the runs of each query in rule
@@ -68,7 +70,7 @@ constexpr int kChunksRow = kStage * 8 / 16;  // 16-byte chunks a criterion row
 constexpr int kLogChunksRow = 5;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 4;          // criteria a walk tests between votes
-constexpr int kMaxRun = 512;       // rules a block walks at most: more waves
+constexpr int kMaxRun = 1024;      // rules a block walks at most: more waves
 constexpr int kRunAlign = 4;       // run bounds: one 16-byte chunk of weights
 constexpr int kMaxCrit = 64;
 constexpr int kReduceQ = 32;       // pass 2: queries a block
@@ -369,26 +371,22 @@ using RunsKernel = void (*)(const int*, int64_t, int64_t, const int64_t*,
                             const int*, const int2*, const int*, int*, int*,
                             int, int, int, int);
 
+// Queries a thread: two hold 2 * MAXC codes in registers, so up to 32
+// criteria; one above.
+int qpt_for(int n_crit) { return n_crit <= 32 ? 2 : 1; }
+
 template <int NT>
-RunsKernel pick_nt(int n_crit, int qpt) {
+RunsKernel pick_nt(int n_crit) {
   if (n_crit < 1 || n_crit > kMaxCrit) return nullptr;
-  if (qpt == 1) {
-    if (n_crit <= 8) return rule_match_runs<NT, 8, 1>;
-    if (n_crit <= 16) return rule_match_runs<NT, 16, 1>;
-    if (n_crit <= 32) return rule_match_runs<NT, 32, 1>;
-    return rule_match_runs<NT, 64, 1>;
-  }
-  if (qpt == 2) {  // 2 * MAXC query registers: up to 32 criteria
-    if (n_crit <= 8) return rule_match_runs<NT, 8, 2>;
-    if (n_crit <= 16) return rule_match_runs<NT, 16, 2>;
-    if (n_crit <= 32) return rule_match_runs<NT, 32, 2>;
-  }
-  return nullptr;
+  if (n_crit <= 8) return rule_match_runs<NT, 8, 2>;
+  if (n_crit <= 16) return rule_match_runs<NT, 16, 2>;
+  if (n_crit <= 32) return rule_match_runs<NT, 32, 2>;
+  return rule_match_runs<NT, 64, 1>;
 }
 
-RunsKernel pick(int n_crit, int qpt, int threads) {
-  if (threads == 128) return pick_nt<128>(n_crit, qpt);
-  if (threads == 256) return pick_nt<256>(n_crit, qpt);
+RunsKernel pick(int n_crit, int threads) {
+  if (threads == 128) return pick_nt<128>(n_crit);
+  if (threads == 256) return pick_nt<256>(n_crit);
   return nullptr;
 }
 
@@ -407,11 +405,12 @@ cudaError_t prepare(RunsKernel kernel, int smem) {
 }  // namespace
 
 // Grid of one call on the current device: plan = {n_runs, run, n_btiles,
-// smem bytes, blocks per SM, SMs, threads a block}. Returns a CUDA error
-// code (0 == ok).
-extern "C" int rule_match_plan(int n_crit, int B, int R, int qpt, int* plan) {
+// smem bytes, blocks per SM, SMs, threads a block, queries a thread}.
+// Returns a CUDA error code (0 == ok).
+extern "C" int rule_match_plan(int n_crit, int B, int R, int* plan) {
+  const int qpt = qpt_for(n_crit);
   const int threads = B >= 1 ? threads_for(B, qpt) : 128;
-  RunsKernel kernel = pick(n_crit, qpt, threads);
+  RunsKernel kernel = pick(n_crit, threads);
   if (!kernel || B < 1 || R < 2 || R % 2 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kRing * slot_bytes(n_crit);
@@ -445,6 +444,7 @@ extern "C" int rule_match_plan(int n_crit, int B, int R, int qpt, int* plan) {
   plan[4] = per_sm;
   plan[5] = sms;
   plan[6] = threads;
+  plan[7] = qpt;
   return 0;
 }
 
@@ -455,15 +455,15 @@ extern "C" int rule_match_packed_launch(
     const void* queries, long long q_row, long long q_col, void* order,
     int sort_col, const void* crit, const void* bounds, const void* weights,
     void* part_w, void* part_i, void* out_w, void* out_i, int n_crit, int B,
-    int R, int qpt, int threads, int n_runs, int run, void* stream) {
-  RunsKernel kernel = pick(n_crit, qpt, threads);
+    int R, int threads, int n_runs, int run, void* stream) {
+  RunsKernel kernel = pick(n_crit, threads);
   if (!kernel || B < 1 || R < 2 || R % 2 != 0 || run < 1 ||
       run % kRunAlign != 0 || n_runs < 1 ||
       static_cast<int64_t>(n_runs) * run < R ||
       static_cast<int64_t>(n_runs - 1) * run >= R ||
       (sort_col >= 0 && (sort_col >= n_crit || B > kSortMax || !order)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = threads * qpt;
+  const int per_block = threads * qpt_for(n_crit);
   const int n_btiles = (B + per_block - 1) / per_block;
   if (n_btiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kRing * slot_bytes(n_crit);

@@ -1,4 +1,4 @@
-"""Wrappers around the rule-match kernel: padding, the packed table, batch
+"""Wrappers around the rule-match kernel: the padded and packed table, batch
 sorting, engine-lane splitting, and the partitioned (NFA-prefix-pruning
 analog) mode.
 
@@ -117,33 +117,29 @@ def _lookup(dt: DeviceRuleTable, w, idx):
     return dec, w, rid
 
 
-def match_rules(queries, dt: DeviceRuleTable, *, tile_b: int = 256,
-                tile_r: int = 512, backend: str = "kernel",
+def match_rules(queries, dt: DeviceRuleTable, *, backend: str = "kernel",
                 n_engines: int = 1):
     """queries: (B, C) int32 on the table's device. Returns (decision, weight,
     rule_id), (B,) int32 each.
 
     ``backend="kernel"`` runs the rule-match kernel on the packed table
     (its plain version for CPU tensors), one launch per lane, ``"ref"`` the
-    plain version on the whole padded batch. n_engines splits the padded
-    batch into that many kernel lanes (the paper's 'NFA evaluation engines
-    per kernel' axis); the outputs do not depend on it. tile_r is the
-    table's padding (``device_table``); the kernel tiles the rules itself.
+    plain version on the whole batch. n_engines splits the batch into that
+    many kernel lanes (the paper's 'NFA evaluation engines per kernel'
+    axis); the outputs do not depend on it. The kernel takes any batch size
+    and tiles the rules itself, so nothing is padded here.
     """
     if backend not in ("kernel", "ref"):
         raise ValueError(f"backend must be 'kernel' or 'ref', not {backend!r}")
-    B, C = queries.shape
-    qp = _pad_to(queries, tile_b * n_engines, 0, 0)
-    Bp = qp.shape[0]
-
     if backend == "ref":
-        w, idx = ref_mod.rule_match_ref(qp, dt.mins_t.T, dt.maxs_t.T,
+        w, idx = ref_mod.rule_match_ref(queries, dt.mins_t.T, dt.maxs_t.T,
                                         dt.weights[0])
     else:
-        outs = [match_lane(lane, dt) for lane in qp.split(Bp // n_engines)]
+        outs = [match_lane(lane, dt)
+                for lane in queries.tensor_split(n_engines)]
         w = torch.cat([bw for bw, _ in outs])
         idx = torch.cat([bi for _, bi in outs])
-    return _lookup(dt, w[:B], idx[:B])
+    return _lookup(dt, w, idx)
 
 
 def match_lane(lane, dt: DeviceRuleTable):

@@ -37,7 +37,6 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_CRIT = 64
-MAX_CRIT_QPT2 = 32   # two queries a thread hold 2 * 32 codes in registers
 # Batches up to this the launch sorts itself, with a one-block bitonic sort
 # in 16 KB of shared memory (kSortMax in csrc/rule_match.cu); above it
 # torch.argsort's radix sort is the faster (chip_smoke.py phase 5 times both
@@ -65,45 +64,41 @@ def _nvcc() -> str:
                        "the CUDA toolkit on the machine with the card")
 
 
-def compile_library(source: Path) -> tuple:
-    """nvcc ``source`` into a shared library under BUILD_DIR (once per
-    source hash); returns (path, nvcc log, seconds)."""
-    src = Path(source).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{Path(source).stem}_{key}.so"
-    log_file = so.with_suffix(".log")   # ptxas's report, kept with the build
-    t0 = time.perf_counter()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
-        log_file.write_text(log)
-        os.replace(tmp, so)
-    log = log_file.read_text() if log_file.exists() else ""
-    return so, log, time.perf_counter() - t0
-
-
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library. nvcc
+    writes a shared library under BUILD_DIR, and ptxas's report beside it."""
     global _lib
     with _build_lock:
         if _lib is not None:
             return _lib
-        so, log, seconds = compile_library(SOURCE)
+        src = SOURCE.read_bytes()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        so = BUILD_DIR / f"rule_match_{key}.so"
+        log_file = so.with_suffix(".log")
+        t0 = time.perf_counter()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
+            log_file.write_text(log)
+            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        lib.rule_match_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.rule_match_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.rule_match_plan.restype = ctypes.c_int
         lib.rule_match_packed_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.rule_match_packed_launch.restype = ctypes.c_int
-        build_info.update(seconds=seconds, path=str(so), log=log)
+        build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                          log=log_file.read_text() if log_file.exists()
+                          else "")
         _lib = lib
         return lib
 
@@ -181,24 +176,28 @@ def _check_packed(queries, bounds, weights_k, crit_order, order):
     return B, C, bounds.shape[1]
 
 
-def _plan(lib, dev, C, B, R, qpt):
-    key = (dev.index, C, B, R, qpt)
-    plan = _plans.get(key)
-    if plan is None:
-        out = (ctypes.c_int * 7)()
+def plan(dev, C, B, R) -> dict:
+    """The grid the kernel picks for one call on ``dev`` (cached): runs of
+    rules and their length, batch tiles, dynamic shared memory a block,
+    resident blocks a SM, SMs, threads a block and queries a thread (two up
+    to 32 criteria, one above)."""
+    key = (dev.index, C, B, R)
+    got = _plans.get(key)
+    if got is None:
+        lib = build()
+        out = (ctypes.c_int * 8)()
         with torch.cuda.device(dev):
-            err = lib.rule_match_plan(C, B, R, qpt, ctypes.addressof(out))
+            err = lib.rule_match_plan(C, B, R, ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"rule_match plan refused: CUDA error {err}")
-        plan = _plans[key] = dict(zip(
+        got = _plans[key] = dict(zip(
             ("n_runs", "run", "n_btiles", "smem", "blocks_per_sm", "sms",
-             "threads"),
-            list(out)))
-    return plan
+             "threads", "qpt"), list(out)))
+    return got
 
 
 def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
-                      sort_col=None, qpt=None):
+                      sort_col=None):
     """Match on the packed table.
 
     queries: (B, C) int32, any strides, in the caller's column order;
@@ -208,8 +207,7 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
     queries then pass or fail the leading criterion together), or as they
     come; the results are in the caller's order either way. On the card the
     sort is a kernel of the same launch up to ``SORT_MAX`` queries (argsort
-    above). qpt: queries a thread (1, or 2 at C <= 32; default 2 where it
-    applies). Returns (best_w (B,), best_i (B,)).
+    above). Returns (best_w (B,), best_i (B,)).
     """
     B, C, R = _check_packed(queries, bounds, weights_k, crit_order, order)
     if order is not None and sort_col is not None:
@@ -226,13 +224,8 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
         return w, i
     if dev.type != "cuda":
         raise ValueError(f"rule_match runs on CUDA or CPU tensors, not {dev}")
-    if qpt is None:
-        qpt = 2 if C <= MAX_CRIT_QPT2 else 1
-    if not 1 <= C <= MAX_CRIT or qpt not in (1, 2) \
-            or (qpt == 2 and C > MAX_CRIT_QPT2):
-        raise ValueError(f"the kernel takes 1..{MAX_CRIT} criteria, and two "
-                         f"queries a thread only up to {MAX_CRIT_QPT2} "
-                         f"(C={C}, qpt={qpt})")
+    if not 1 <= C <= MAX_CRIT:
+        raise ValueError(f"the kernel takes 1..{MAX_CRIT} criteria (C={C})")
     if R % 2 or not (bounds.is_contiguous() and weights_k.is_contiguous()
                      and crit_order.is_contiguous()
                      and (order is None or order.is_contiguous())) \
@@ -243,9 +236,18 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
         return (torch.empty((0,), dtype=torch.int32, device=dev),) * 2
     if sort_col is not None and B > SORT_MAX:
         order, sort_col = torch.argsort(queries[:, sort_col]), None
+    return _launch(queries, bounds, weights_k, crit_order, order, sort_col,
+                   plan(dev, C, B, R))
+
+
+def _launch(queries, bounds, weights_k, crit_order, order, sort_col, grid):
+    """One launch of sort (if ``sort_col``), pass 1 on the grid ``grid`` (a
+    ``plan``) and pass 2; inputs checked by ``rule_match_packed``."""
+    B, C = queries.shape
+    R = bounds.shape[1]
+    dev = queries.device
     lib = build()
-    plan = _plan(lib, dev, C, B, R, qpt)
-    runs = plan["n_runs"]
+    runs = grid["n_runs"]
     # one allocation: out_w, out_i, the sort's order (int64), the partials
     buf = torch.empty((2 * runs + 4) * B, dtype=torch.int32, device=dev)
     base = buf.data_ptr()
@@ -261,8 +263,8 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
             queries.data_ptr(), queries.stride(0), queries.stride(1),
             order_ptr, -1 if sort_col is None else sort_col,
             crit_order.data_ptr(), bounds.data_ptr(), weights_k.data_ptr(),
-            part, part + 4 * runs * B, base, base + 4 * B, C, B, R, qpt,
-            plan["threads"], runs, plan["run"],
+            part, part + 4 * runs * B, base, base + 4 * B, C, B, R,
+            grid["threads"], runs, grid["run"],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rule_match kernel launch failed: CUDA error {err}")

@@ -30,10 +30,10 @@ from repro_torch.core.workload import generate_workload
 from repro_torch.core.wrapper import MCTWrapper, measure_stage_times
 
 CONFIGS = {
-    "kernel": dict(tile_b=64, tile_r=128),
+    "kernel": dict(tile_r=128),
     "ref": dict(backend="ref"),
     "partitioned": dict(tile_r=128, partitioned=True),
-    "lanes": dict(tile_b=32, tile_r=128, n_engines=2),
+    "lanes": dict(tile_r=128, n_engines=2),
 }
 
 
@@ -78,7 +78,7 @@ def test_match_queries_equals_encode_then_match(setup):
     _, _, _, tables = setup
     t = tables["own"]
     qs = generate_queries(generate_rules(600, version=2, seed=11), 64, seed=3)
-    eng = ErbiumEngine(t, device="cpu", tile_b=64, tile_r=128)
+    eng = ErbiumEngine(t, device="cpu", tile_r=128)
     enc = eng.encode_queries_host(qs)
     assert enc.tobytes() == eng.encode(queries_to_arrays(qs)).tobytes()
     for a, b in zip(eng.match_queries(qs), eng.match(torch.as_tensor(enc))):
@@ -129,7 +129,7 @@ def system():
     jwl = j_workload(jrs, 6, seed=2, mean_ts=60.0)
     rs = generate_rules(800, version=2, seed=21)
     table = compile_rules(rs)
-    eng = ErbiumEngine(table, device="cpu", tile_b=64, tile_r=256)
+    eng = ErbiumEngine(table, device="cpu", tile_r=256)
     wl = generate_workload(rs, 6, seed=2, mean_ts=60.0)
     return (jeng, jwl), (rs, table, eng, wl)
 

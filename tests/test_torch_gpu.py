@@ -87,7 +87,7 @@ def test_engine_on_card_equals_plain(cuda_device, n_engines):
     t = compile_rules(rs)
     enc = encode_queries(t, generate_queries(rs, 256, seed=12))
     want = ErbiumEngine(t, device="cpu", backend="ref").match(enc)
-    for kw in (dict(tile_b=64, tile_r=128, n_engines=n_engines),
+    for kw in (dict(tile_r=128, n_engines=n_engines),
                dict(tile_r=128, partitioned=True)):
         got = ErbiumEngine(t, device=cuda_device, **kw).match(enc)
         for g, w in zip(got, want):
@@ -102,13 +102,13 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     w = torch.zeros((1, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="criteria"):
         rm.rule_match(q, r, r, w, tile_b=32, tile_r=64)
-    C = 33
+    C = 65
     r = torch.zeros((C, 64), dtype=torch.int32, device=dev)
     crit = torch.arange(C, dtype=torch.int32, device=dev)
     bounds, wk = rm.pack(r, r, r[0], crit)
-    with pytest.raises(ValueError, match="criteria"):   # 2 a thread: C <= 32
+    with pytest.raises(ValueError, match="criteria"):
         rm.rule_match_packed(torch.zeros((64, C), dtype=torch.int32,
-                                         device=dev), bounds, wk, crit, qpt=2)
+                                         device=dev), bounds, wk, crit)
 
 
 def _packed_case(dev, B, R, C, seed, weight_max=100):
@@ -123,17 +123,15 @@ PACKED = ([(B, R, C) for B, R, C, _, _ in SHAPES]
           + [(300, 1000, 31), (256, 4102, 31), (77, 999, 13)]  # ragged R, B
           + [(9000, 3000, 31)]              # above SORT_MAX: argsort sorts
           + [(512, 3000, C) for C in (1, 8, 31, 32, 33, 64)])
-# one query a thread everywhere, two where the kernel takes them (C <= 32)
-PACKED_QPT = [(*case, qpt) for case in PACKED for qpt in (1, 2)
-              if qpt == 1 or case[2] <= 32]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,R,C,qpt", PACKED_QPT)
-def test_packed_kernel_matches_plain(cuda_device, B, R, C, qpt):
+@pytest.mark.parametrize("B,R,C", PACKED)
+def test_packed_kernel_matches_plain(cuda_device, B, R, C):
     """The packed kernel, batch sorted in the launch or by a given order,
     against the packed plain version and rule_match_ref, exactly; stage
-    width 64 does not divide R = 1000, 4102 or the padded 999."""
+    width 64 does not divide R = 1000, 4102 or the padded 999; two queries
+    a thread up to C = 32, one above."""
     q, mins, maxs, w, crit, bounds, wk = _packed_case(cuda_device, B, R, C,
                                                       B + R + C)
     lead = int(crit[0])
@@ -141,7 +139,7 @@ def test_packed_kernel_matches_plain(cuda_device, B, R, C, qpt):
     rw, ri = rule_match_ref(q, mins, maxs, w)
     for kw in (dict(sort_col=lead), dict(order=torch.argsort(q[:, lead]))):
         before = rm.rule_match.launches
-        kw_, ki = rm.rule_match_packed(q, bounds, wk, crit, qpt=qpt, **kw)
+        kw_, ki = rm.rule_match_packed(q, bounds, wk, crit, **kw)
         torch.cuda.synchronize(cuda_device)
         assert rm.rule_match.launches == before + 1
         for got, want in ((kw_, pw), (ki, pi), (kw_, rw), (ki, ri)):
@@ -186,5 +184,5 @@ def test_refused_launch_raises_and_never_falls_back(cuda_device, monkeypatch):
     before = rm.rule_match.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         rm.rule_match_packed(torch.zeros((32, C), dtype=torch.int32,
-                                         device=dev), bounds, wk, crit, qpt=1)
+                                         device=dev), bounds, wk, crit)
     assert rm.rule_match.launches == before

@@ -181,8 +181,7 @@ def test_match_rules_packed_equal_jax(v2_setup, n_engines):
     want = j_ops.match_rules(jnp.asarray(enc), j_ops.device_table(t, tile_r=128),
                              tile_b=32, tile_r=128, n_engines=n_engines)
     dt = ops.device_table(t, tile_r=128, device="cpu")
-    got = ops.match_rules(torch.as_tensor(enc), dt, tile_b=32, tile_r=128,
-                          n_engines=n_engines)
+    got = ops.match_rules(torch.as_tensor(enc), dt, n_engines=n_engines)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -204,8 +203,7 @@ def test_device_table_packs_once_in_kernel_order(v2_setup):
     other = dt._replace(crit_order=perm, bounds=bounds, weights_k=wk,
                         lead_col=int(perm[0]))
     qt = torch.as_tensor(enc)
-    for g, w in zip(ops.match_rules(qt, other, tile_b=32),
-                    ops.match_rules(qt, dt, tile_b=32)):
+    for g, w in zip(ops.match_rules(qt, other), ops.match_rules(qt, dt)):
         assert torch.equal(g, w)
 
 

@@ -153,8 +153,7 @@ def test_match_rules_lanes_equal_jax(lanes_setup, n_engines):
     want = j_ops.match_rules(jnp.asarray(enc), jd, tile_b=32, tile_r=128,
                              n_engines=n_engines)
     dt = ops.device_table(t, tile_r=128, device="cpu")
-    got = ops.match_rules(torch.as_tensor(enc), dt, tile_b=32, tile_r=128,
-                          n_engines=n_engines)
+    got = ops.match_rules(torch.as_tensor(enc), dt, n_engines=n_engines)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
