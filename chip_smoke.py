@@ -20,8 +20,20 @@ Phases, in order; any failure exits non-zero:
   5. kernel time (CUDA events) at 160k rules and B = 256, 1024, 4096: the
      main path's lane (sort, kernel, unsort) and its parts, the plain
      versions, the work the data needs in the compiler's and the kernel's
-     criterion order, and the least time the card could take.
-It then prints one JSON line of kernel results and, last, the device line.
+     criterion order, and the least time the card could take;
+  6. the route scorer: LMServer on the full-width llama3.2-3b in bf16, its
+     MCT filter on phase 4's engine, serving 16 requests in deadline-formed
+     batches; checks (a) the dropped requests against cpu_match_numpy's
+     decisions, (b) token counts and truncation, (c) prefill against
+     token-by-token decode in bf16, (d) a 2-layer float32 copy on the card
+     against the CPU; per-batch times, and one decode step's time and
+     top device operations (torch.profiler);
+  7. the paper's deployment analysis from this card's numbers: stage times
+     at B = 256, 1024, 4096, the fig 7-10 series and the fig 11 Pareto
+     front, tables 2 and 3 (table 2 within 3% of the paper), and the H100
+     cost balance from the measured host and card rates.
+It then prints JSON lines for phases 7 and 6 and the kernels and, last, the
+device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
@@ -42,6 +54,20 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT32_LANES_PER_SM = 64            # Hopper SM: 64 INT32 units, one op a clock
 TIMED_BATCHES = (256, 1024, 4096)   # the summary line reports 1024
 LANE_TURNS = 4                      # lane timings, 20 calls each
+ARCH = "llama3.2-3b"                # the route scorer, at full width
+LM_MAX_SEQ = 256
+LM_REQUESTS = 16
+LM_NEW_TOKENS = 8
+# check (c): bf16 prefill against bf16 token-by-token decode; the two round
+# to bf16 at other places (p @ v in fp32 against p rounded to bf16 first),
+# about 1.1-1.2% of the largest logit at 4-8 layers and d_model 256-1024
+BF16_REL_TOL = 0.05
+# check (d): float32, TF32 off, card against CPU: another summation order
+# over products of up to 8,192 terms and a 128,256-wide vocabulary
+F32_TOL = 1e-3                      # atol = rtol
+# phase 7: the paper's deployment series at the batch of fig 7-11
+DEPLOY_BATCH = 4096
+STAGE_BATCHES = (256, 1024, 4096)
 
 
 def fail(msg: str) -> None:
@@ -325,7 +351,8 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
     ops.pack = pack
     print(f"reload: {us:.1f} us device swap (table packed once), results "
           "unchanged")
-    return engine, all_enc, launches, n_q / wall
+    queries = [q for b in batches for q in b.queries]
+    return engine, all_enc, queries, launches, n_q / wall
 
 
 def count_work(q, mins, maxs, crit_order=None, groups=()):
@@ -542,6 +569,341 @@ def phase_kernel_time(dev, engine, all_enc):
     return rows
 
 
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def top_device_ops(fn, n: int = 8):
+    """Device time (torch.profiler) of one call of ``fn``: the n operators
+    and the n kernels with the most, as (name, ms, calls), the total, and
+    the number of kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, kernels = [], []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if not us:
+            continue
+        row = (evt.key, us / 1e3, evt.count)
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append(row)
+        else:
+            ops.append(row)
+    total = sum(r[1] for r in kernels)
+    launches = sum(r[2] for r in kernels)
+    by_time = lambda rows: sorted(rows, key=lambda r: -r[1])[:n]  # noqa
+    return by_time(ops), by_time(kernels), total, launches
+
+
+def phase_route_scorer(dev, engine, queries, card: str):
+    """LMServer on the full-width llama3.2-3b in bf16, its MCT filter on
+    phase 4's engine (the CUDA rule-match kernel); checks (a)-(d).
+    ``card`` is nvidia-smi's name and power limit, printed beside times."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine import cpu_match_numpy
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.rule_match import rule_match
+    from repro_torch.serve import LMServer, Request, form_batch_groups
+
+    cfg = get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = LMServer(cfg, device=dev, max_seq=LM_MAX_SEQ, seed=0,
+                   rule_filter=engine)
+    synchronize(dev)
+    t_init = time.perf_counter() - t0
+    p_bytes = tree_bytes(srv.params)
+    kv_tok = tree_bytes(list(leaves(srv.model.cache_struct(1, 1))))
+    print(f"route scorer: {ARCH}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}: {cfg.n_params()} parameters "
+          f"(ModelConfig.n_params), {p_bytes} bytes on the card; drawn on "
+          f"the card in {t_init:.2f} s; KV cache {kv_tok} bytes a token a "
+          f"sequence ({kv_tok * 8 * LM_MAX_SEQ} bytes at B = 8, S = "
+          f"{LM_MAX_SEQ})")
+
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i in range(LM_REQUESTS):
+        plen = int(rng.integers(16, 49))
+        nq = int(rng.integers(2, 7))
+        reqs.append(Request(
+            rid=i, tokens=rng.integers(0, cfg.vocab, plen).astype(np.int32),
+            max_new_tokens=LM_NEW_TOKENS, arrival=i * 0.002,
+            mct_queries=[queries[j] for j in
+                         rng.integers(0, len(queries), nq)]))
+    # connect times from the host's decisions: each connection gets its MCT
+    # + 30 minutes, and about half the requests one connection of 0 minutes
+    flat = [q for r in reqs for q in r.mct_queries]
+    dec = cpu_match_numpy(engine.table, engine.encode_queries_host(flat),
+                          block=128)[0]
+    mct = np.where(dec >= 0, dec, engine.table.default_decision)
+    expect_drop, j = set(), 0
+    for r in reqs:
+        n = len(r.mct_queries)
+        need = mct[j:j + n]
+        j += n
+        have = need + 30
+        if rng.random() < 0.5:
+            have[rng.integers(0, n)] = 0
+        r.connect_minutes = [int(x) for x in have]
+        if (have < need).any():
+            expect_drop.add(r.rid)
+
+    srv.warmup((1, 2, 4, 8))
+    groups = form_batch_groups(reqs, target_batch=8, deadline=0.01)
+    rule_match.launches = 0
+    comps, batches = [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        out = srv.generate_batch(g)
+        wall = (time.perf_counter() - t0) * 1e3
+        comps.extend(out)
+        n_tok = sum(len(c.tokens) for c in out)
+        row = dict(requests=len(g), kept=len(out), wall_ms=wall,
+                   tokens=n_tok)
+        if out:
+            pad = 1 << (len(out) - 1).bit_length()
+            pre, dec_ms = out[0].prefill_ms, out[0].decode_ms
+            row.update(padded=pad, prefill_ms=pre, decode_ms=dec_ms,
+                       tokens_per_s=n_tok / ((pre + dec_ms) / 1e3),
+                       prompt_steps=max(len(r.tokens) for r in g
+                                        if r.rid in {c.rid for c in out}))
+        batches.append(row)
+        print(f"route scorer batch ({card}): " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+    launches = rule_match.launches
+    if launches != len(groups):
+        fail(f"rule-match launches {launches} on the route-scorer path, "
+             f"{len(groups)} filtered batches")
+    dropped = {r.rid for r in reqs} - {c.rid for c in comps}
+    print(f"route scorer: {len(groups)} batches of sizes "
+          f"{[len(g) for g in groups]}, {len(comps)} served, dropped "
+          f"{sorted(dropped)}; rule-match launches {launches}")
+    if dropped != expect_drop:                                     # (a)
+        fail(f"(a) dropped {sorted(dropped)}, cpu_match_numpy's decisions "
+             f"drop {sorted(expect_drop)}")
+    for c in comps:                                                # (b)
+        if len(c.tokens) != LM_NEW_TOKENS or c.truncated \
+                or not ((c.tokens >= 0) & (c.tokens < cfg.vocab)).all():
+            fail(f"(b) request {c.rid}: {len(c.tokens)} tokens, truncated "
+                 f"{c.truncated}")
+    print(f"check (a): dropped set equals cpu_match_numpy's "
+          f"({len(expect_drop)} of {len(reqs)}); check (b): "
+          f"{len(comps)} completions of {LM_NEW_TOKENS} tokens, none "
+          "truncated")
+
+    # (c) full width, bf16: prefill's last-token logits against decode
+    prompt = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
+                             device=dev)[None]
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        last, _ = srv.model.prefill(srv.params, {"tokens": prompt})
+        cache = srv.model.init_cache(1, S, device=dev)
+        for t in range(S):
+            lg, cache = srv.model.decode_step(srv.params, cache,
+                                              prompt[:, t:t + 1], t)
+    a, b = lg.float()[0, 0], last.float()[0, 0]
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    gap = float(b.topk(2).values.diff().abs()[0])
+    same_top = int(a.argmax()) == int(b.argmax())
+    ok_c = (bool(torch.isfinite(a).all()) and diff <= BF16_REL_TOL * scale
+            and (same_top or gap <= 2 * diff))
+    print(f"check (c): bf16 prefill vs {S} decode steps, last-token logits: "
+          f"max abs diff {diff:.5f}, largest logit {scale:.4f}, ratio "
+          f"{diff / scale:.5f} (limit {BF16_REL_TOL}); top-2 gap {gap:.5f}, "
+          f"same argmax {same_top}")
+    if not ok_c:
+        fail("(c) prefill and token-by-token decode disagree")
+
+    # one decode step at B = 8: time and the operators that take it
+    cache = srv.model.init_cache(8, LM_MAX_SEQ, device=dev)
+    tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            srv.model.decode_step(srv.params, cache, tok, 40)
+    step()
+    step_ms = cuda_ms(step, 10)
+    step_bound = p_bytes / HBM_BYTES_PER_S * 1e3
+    ops, kernels, dev_ms, n_launch = top_device_ops(step)
+    print(f"decode step ({card}), B = 8, pos 40: {step_ms:.4f} ms (CUDA "
+          f"events, 10 steps); weights read once {step_bound:.4f} ms by "
+          f"bytes; under the profiler {n_launch} kernel launches, device "
+          f"time {dev_ms:.4f} ms")
+    for name, ms, n in ops:
+        print(f"  op {name}: {ms:.4f} ms device, {n} calls")
+    for name, ms, n in kernels:
+        print(f"  kernel {name[:90]}: {ms:.4f} ms, {n} launches")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del cache, srv
+    torch.cuda.empty_cache()
+
+    # (d) 2 layers, full width, float32, TF32 off: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               param_dtype="float32")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu = LMServer(cfg2, device=dev, max_seq=64, seed=0)
+        cpu = LMServer(cfg2, gpu._params_on(torch.device("cpu")),
+                       device="cpu", max_seq=64)
+        toks = np.stack([reqs[1].tokens[:16], reqs[2].tokens[:16]])
+        with torch.inference_mode():
+            lg_gpu = gpu.model.logits(gpu.params, {"tokens": torch.as_tensor(
+                toks, dtype=torch.long, device=dev)}).cpu()
+            lg_cpu = cpu.model.logits(cpu.params, {"tokens": torch.as_tensor(
+                toks, dtype=torch.long)})
+        d_err = float((lg_gpu - lg_cpu).abs().max())
+        close = bool(torch.allclose(lg_gpu, lg_cpu, atol=F32_TOL,
+                                    rtol=F32_TOL))
+        pair = [Request(rid=0, tokens=reqs[1].tokens[:20], max_new_tokens=8),
+                Request(rid=1, tokens=reqs[2].tokens[:13], max_new_tokens=8)]
+        t_gpu = [c.tokens for c in gpu.generate_batch(pair)]
+        t_cpu = [c.tokens for c in cpu.generate_batch(pair)]
+        same = all(np.array_equal(x, y) for x, y in zip(t_gpu, t_cpu))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    print(f"check (d): 2-layer float32 copy, card vs CPU: logits (2, 16, "
+          f"{cfg.vocab}) max abs diff {d_err:.3g} (atol = rtol = "
+          f"{F32_TOL}: {close}); greedy tokens equal {same}")
+    if not (close and same):
+        fail("(d) the card and the CPU disagree on the float32 model")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+    served = [b for b in batches if b["kept"]]
+    n_tok = sum(b["tokens"] for b in served)
+    t_s = sum(b["prefill_ms"] + b["decode_ms"] for b in served) / 1e3
+    return dict(batches=len(groups), requests=len(reqs),
+                dropped=len(dropped), served=len(comps),
+                tokens_per_s=n_tok / t_s, decode_step_ms_b8=step_ms,
+                decode_step_launches=n_launch, decode_step_device_ms=dev_ms,
+                decode_step_bound_ms=step_bound, peak_bytes=peak,
+                launches=launches, batch_rows=batches,
+                checks={"a": True, "b": True, "c": True, "d": True},
+                c_ratio=diff / scale, d_max_abs=d_err)
+
+
+def phase_deployment(engine, queries, timed, card: str):
+    """The paper's deployment analysis (figs 7-11, tables 2-3) and the H100
+    cost balance, from this card's stage times and lane time."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.aggregator import Batch
+    from repro_torch.core.deployment import Config, evaluate, pareto, sweep
+    from repro_torch.core.wrapper import measure_stage_times
+
+    def make_batch(n):
+        return Batch(0, [queries[i % len(queries)] for i in range(n)],
+                     [(0, -1)] * n)
+
+    st = measure_stage_times(engine, make_batch, STAGE_BATCHES, repeats=3)
+    for t in st:
+        print(f"stage times ({card}; median of 3), B = {t.batch}: encode_us "
+              f"{t.encode_us:.1f}, dispatch_us {t.dispatch_us:.1f}, "
+              f"kernel_us {t.kernel_us:.1f}, collect_us {t.collect_us:.1f}")
+    # the configurations of benchmarks/fig7_10_parallel.py and fig11_pareto.py
+    series = {
+        "fig7_engines": [Config(1, 1, 1, e) for e in (1, 2, 4)],
+        "fig8_uniform": [Config(c, c, c, 1) for c in (1, 2, 4)],
+        "fig9_workers_per_kernel": [Config(w, w, 1, 4)
+                                    for w in (1, 2, 4, 8)],
+        "fig10_procs_per_worker": [Config(p, 1, 1, 4)
+                                   for p in (1, 2, 8, 16, 32)],
+    }
+    out = {}
+    for name, cfgs in series.items():
+        for c in cfgs:
+            perf = evaluate(c, st, DEPLOY_BATCH)
+            out[(name, c)] = perf
+            print(f"{name} {c.label()}: latency {perf.latency_us:.1f} us, "
+                  f"{perf.throughput_qps:.4g} queries/s")
+    e1 = out[("fig7_engines", Config(1, 1, 1, 1))]
+    e4 = out[("fig7_engines", Config(1, 1, 1, 4))]
+    p16 = out[("fig10_procs_per_worker", Config(16, 1, 1, 4))]
+    p32 = out[("fig10_procs_per_worker", Config(32, 1, 1, 4))]
+    print(f"fig7: 4 engines cut latency {e1.latency_us / e4.latency_us:.2f}x;"
+          f" fig10: 16 -> 32 processes a worker gain "
+          f"{p32.throughput_qps / p16.throughput_qps:.2f}x")
+    cfgs = [Config(p, w, k, e)
+            for p in (1, 2, 4) for w in (1, 2, 4)
+            for k in (1, 2, 4) for e in (1, 2, 4)
+            if w >= k and p >= w and k * e <= 4]
+    perfs = sweep(cfgs, st, [DEPLOY_BATCH])
+    front = pareto(perfs)
+    for pf in front:
+        print(f"fig11 front {pf.config.label()}: latency "
+              f"{pf.latency_us:.1f} us, {pf.throughput_qps:.4g} queries/s")
+    top = max(q.throughput_qps for q in perfs)
+    floor = min((q for q in perfs if q.throughput_qps >= 0.5 * top),
+                key=lambda q: q.latency_us)
+    print(f"fig11 best latency at >= half the top throughput: "
+          f"{floor.config.label()}, {floor.latency_us:.1f} us, "
+          f"{floor.throughput_qps:.4g} queries/s")
+
+    worst = 0.0
+    for d in cm.table2():
+        want = cm.PAPER_TABLE2_TOTALS[d.name]
+        worst = max(worst, abs(d.total_usd / want - 1))
+        print(f"table 2 {d.name}: {d.units} x {d.element} = "
+              f"${d.total_usd:,.0f} (paper ${want:,.0f})")
+    for d in cm.table3():
+        print(f"table 3 {d.name}: {d.units} x {d.element} = "
+              f"${d.total_usd:,.0f}")
+    if worst > 0.03:
+        fail(f"table 2 is {worst:.1%} off the paper's totals (limit 3%)")
+    print(f"table 2 within {worst:.2%} of the paper's totals (limit 3%)")
+
+    enc_us = next(t.encode_us for t in st if t.batch == 1024)
+    lane_ms = next(r["ms"] for r in timed if r["B"] == 4096)
+    params = cm.H100CostParams(host_qps_per_vcpu=1024 / (enc_us * 1e-6),
+                               accel_qps_per_chip=4096 / (lane_ms * 1e-3))
+    print(f"H100 cost parameters ({card}): host "
+          f"{params.host_qps_per_vcpu:.6g} "
+          f"queries/s a vCPU (one encode worker, B = 1024), card "
+          f"{params.accel_qps_per_chip:.6g} queries/s (phase 5 lane, B = "
+          f"4096); {params.host_vcpus_per_gpu:g} vCPUs and "
+          f"${params.gpu_usd_per_hour:.2f}/h a GPU (p5.48xlarge)")
+    balance = {}
+    for q in (2e8, 2e9, 2e10):
+        balance[f"{q:.0e}"] = r = cm.h100_balance(params, q)
+        print(f"h100_balance at {q:.0e} queries/s: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in r.items()))
+    return dict(stage_times=[vars(t) for t in st],
+                host_qps_per_vcpu=params.host_qps_per_vcpu,
+                accel_qps_per_chip=params.accel_qps_per_chip,
+                balance=balance, table2_worst=worst,
+                pareto=[(pf.config.label(), pf.latency_us, pf.throughput_qps)
+                        for pf in front])
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -553,7 +915,8 @@ def main() -> None:
     count = torch.cuda.device_count()
     print(f"device: {kind} x{count}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
-    print(nvidia_smi("name,power.limit"))
+    card = nvidia_smi("name,power.limit")
+    print(card)
 
     rm.build()
     print(f"build: {rm.build_info['seconds']:.1f} s -> {rm.build_info['path']}")
@@ -566,16 +929,33 @@ def main() -> None:
     if worst != 0:
         fail(f"kernel disagrees with its plain version (max_abs_err {worst})")
 
-    engine, all_enc, launches, qps = phase_main_path(
+    engine, all_enc, queries, launches, qps = phase_main_path(
         dev, N_RULES, n_users=16, n_check=2048)
     timed = phase_kernel_time(dev, engine, all_enc)
     worst = max([worst] + [r["max_abs_err"] for r in timed])
     if worst != 0:
         fail(f"kernel disagrees with its plain version (max_abs_err {worst})")
+    t0 = time.perf_counter()
+    scorer = phase_route_scorer(dev, engine, queries, card)
+    t1 = time.perf_counter()
+    deploy = phase_deployment(engine, queries, timed, card)
+    print(f"phase 6 took {t1 - t0:.1f} s, phase 7 "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"deployment": deploy}))
+    print(json.dumps({"route_scorer": {"card": card, **{
+        k: scorer[k] for k in ("batches", "requests", "served", "dropped",
+                               "tokens_per_s", "decode_step_ms_b8",
+                               "decode_step_launches",
+                               "decode_step_device_ms",
+                               "decode_step_bound_ms", "peak_bytes",
+                               "checks")}}}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "exact": True,
+        "replaces": REPLACES, "launches": launches + scorer["launches"],
+        "launches_by_path": {"mct_wrapper": launches,
+                             "route_scorer": scorer["launches"]},
+        "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "plain_packed_ms": t["plain_packed_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,0 +1,240 @@
+"""Config system: architecture and shape-cell configuration.
+
+Port of ``repro.configs.base``, kept as the port's own copy (plain
+dataclasses, no torch). An architecture with a port gets a
+``src/repro_torch/configs/<id>.py`` exporting ``CONFIG`` (full-scale)
+built on :class:`ModelConfig`. ``ModelConfig.reduced()`` derives the
+CPU-test variant of the same family (small widths / few layers / tiny
+vocab).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Shape cells (assigned input-shape set for the LM family)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (workload kind, seq_len, global_batch) cell from the assignment."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeCell("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeCell("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeCell("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeCell("long_500k", 524_288, 1, "decode")
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # "ep": experts sharded over model axis; "tp": expert d_ff sharded.
+    parallel_mode: str = "ep"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 16
+    d_inner_mult: int = 2
+    conv_width: int = 4
+    chunk: int = 128  # chunk length for chunkwise-parallel scans
+    # compute projections/gates inside the chunk scan (memory-optimised;
+    # baseline materialises (B,T,di,N) inputs for the whole sequence)
+    chunk_local: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # identity
+    arch: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    # transformer backbone
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    # activations / variants
+    act: str = "swiglu"  # swiglu | relu2 | gelu
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # attention pattern: window size per layer; 0 == global. Specified via a
+    # repeating pattern applied cyclically over layers.
+    attn_pattern: Tuple[int, ...] = (0,)
+    local_window: int = 1_024
+    rope_theta_global: Optional[float] = None  # gemma3: different theta on globals
+    # encoder-only (no causal mask, no decode step)
+    encoder_only: bool = False
+    # cross-attention (VLM): one cross-attn layer after every `cross_attn_every`
+    # self-attn layers; 0 == disabled. n_layers counts self-attn layers.
+    cross_attn_every: int = 0
+    n_vision_tokens: int = 0
+    # MoE / SSM / hybrid
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # xLSTM: every `slstm_every`-th block is an sLSTM block (0 == none)
+    slstm_every: int = 0
+    # hybrid (hymba): attention and SSM run in parallel in each layer
+    parallel_ssm: bool = False
+    # modality frontend stub (audio/vlm): inputs arrive as embeddings
+    embedding_inputs: bool = False
+    # long-context capability (sub-quadratic path exists)
+    supports_long_context: bool = False
+    # numerics / memory policy
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    optimizer_dtype: str = "float32"  # bf16 for the largest archs
+    remat: str = "full"  # full | dots | none
+    # gradient-accumulation microbatches for train_4k (global_batch divides)
+    train_microbatches: int = 8
+    # two-level remat: scan over groups of layers, remat inside groups
+    remat_groups: Optional[int] = None
+    # scan segmentation for heterogeneous stacks (set automatically)
+    logical_axis_rules: Tuple[Tuple[str, Optional[str]], ...] = ()
+
+    # -- derived ------------------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def window_for_layer(self, i: int) -> int:
+        return self.attn_pattern[i % len(self.attn_pattern)]
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks), for roofline math."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        p = V * D * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.family != "ssm":  # xLSTM blocks carry no attention
+            per_layer += (D * self.q_dim + 2 * D * self.kv_dim
+                          + self.q_dim * D)
+        # norms
+        per_layer += 2 * D
+        if self.moe is not None:
+            e, fe = self.moe.num_experts, self.moe.d_ff_expert
+            n_mats = 3 if self.act == "swiglu" else 2
+            per_layer += D * e + e * n_mats * D * fe
+        elif self.parallel_ssm and self.ssm is not None:
+            di = self.ssm.d_inner_mult * D
+            per_layer += D * 2 * di + di * D + di * (2 * self.ssm.state_dim + 2)
+            n_mats = 3 if self.act == "swiglu" else 2
+            per_layer += n_mats * D * F
+        elif self.family == "ssm":
+            # xLSTM mLSTM block: Wq,Wk,Wv,Wo,Wog (DxD each) + scalar gate projs
+            per_layer += 5 * D * D + 2 * D * self.n_heads
+        else:
+            n_mats = 3 if self.act == "swiglu" else 2
+            per_layer += n_mats * D * F
+        if self.cross_attn_every:
+            n_cross = L // self.cross_attn_every
+            cross = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D + 2 * D
+            p += n_cross * cross
+        return p + L * per_layer
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters — differs from n_params for MoE."""
+        if self.moe is None:
+            return self.n_params()
+        full = self.n_params()
+        e, k, fe = self.moe.num_experts, self.moe.top_k, self.moe.d_ff_expert
+        n_mats = 3 if self.act == "swiglu" else 2
+        inactive = self.n_layers * (e - k) * n_mats * self.d_model * fe
+        return full - inactive
+
+    def shape_cells(self) -> Tuple[ShapeCell, ...]:
+        """The assigned shape cells applicable to this architecture."""
+        cells = [TRAIN_4K, PREFILL_32K]
+        if not self.encoder_only:
+            cells.append(DECODE_32K)
+            if self.supports_long_context:
+                cells.append(LONG_500K)
+        return tuple(cells)
+
+    def skipped_cells(self) -> Tuple[Tuple[str, str], ...]:
+        out = []
+        if self.encoder_only:
+            out.append(("decode_32k", "encoder-only architecture: no decode step"))
+            out.append(("long_500k", "encoder-only architecture: no decode step"))
+        elif not self.supports_long_context:
+            out.append(
+                ("long_500k", "pure full-attention architecture: 500k dense KV "
+                              "cache / quadratic attention; no sub-quadratic path")
+            )
+        return tuple(out)
+
+    def reduced(self) -> "ModelConfig":
+        """Small same-family config for CPU smoke tests."""
+        kw = dict(
+            n_layers=min(self.n_layers, 4),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads > 1 else 1,
+            head_dim=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab=256,
+            n_vision_tokens=16 if self.cross_attn_every else 0,
+            remat="none",
+        )
+        if self.cross_attn_every:
+            kw["cross_attn_every"] = 2
+            kw["n_layers"] = 4
+        if self.slstm_every:
+            kw["slstm_every"] = 2
+        if self.moe is not None:
+            kw["moe"] = MoEConfig(
+                num_experts=4, top_k=min(self.moe.top_k, 2), d_ff_expert=64,
+                capacity_factor=2.0, parallel_mode=self.moe.parallel_mode)
+        if self.ssm is not None:
+            kw["ssm"] = SSMConfig(state_dim=8, chunk=16)
+        if len(self.attn_pattern) > 1:
+            kw["attn_pattern"] = self.attn_pattern[: 2]
+            kw["local_window"] = 8
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+# archs whose config file and model family the port carries so far
+PORTED_ARCHS: Tuple[str, ...] = ("llama3.2-3b",)
+
+
+def get_config(arch: str) -> ModelConfig:
+    """Load the full-scale config for a ported architecture id."""
+    import importlib
+
+    if arch not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet (ported: {', '.join(PORTED_ARCHS)});"
+            " the other model families are ROADMAP.md queue 1, item 9")
+    mod_name = "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(mod_name)
+    cfg = mod.CONFIG
+    if cfg.arch != arch:
+        raise ValueError(f"{mod_name} holds {cfg.arch!r}, not {arch!r}")
+    return cfg

@@ -1,0 +1,191 @@
+"""Attention: blockwise (online-softmax) full-sequence attention with causal /
+sliding-window / bidirectional masks, GQA grouped heads, and single-token
+decode against a KV cache.
+
+Port of ``repro.models.attention``, grouped layout only: the ``expand`` and
+``qblock`` layouts exist only under a sharding context (ROADMAP.md queue 1,
+item 11). Scores, softmax and accumulation are float32, as the reference's
+``preferred_element_type=jnp.float32`` makes them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_attn(generator: torch.Generator, d_model: int, n_heads: int,
+              n_kv_heads: int, head_dim: int, dtype: torch.dtype) -> dict:
+    return {
+        "wq": dense_init(generator, d_model, n_heads * head_dim, dtype),
+        "wk": dense_init(generator, d_model, n_kv_heads * head_dim, dtype),
+        "wv": dense_init(generator, d_model, n_kv_heads * head_dim, dtype),
+        "wo": dense_init(generator, n_heads * head_dim, d_model, dtype,
+                         scale=1.0 / math.sqrt(n_heads * head_dim)),
+    }
+
+
+def _block_pairs(n_q: int, n_kv: int, block_q: int, block_kv: int,
+                 causal: bool, window: int):
+    """(qi, kj) block pairs that may contain unmasked entries, in the
+    reference's visiting order."""
+    pairs = []
+    for qi in range(n_q):
+        q_lo, q_hi = qi * block_q, qi * block_q + block_q - 1
+        for kj in range(n_kv):
+            k_lo, k_hi = kj * block_kv, kj * block_kv + block_kv - 1
+            if causal and k_lo > q_hi:
+                continue
+            if window > 0 and k_hi < q_lo - window + 1:
+                continue
+            pairs.append((qi, kj))
+    return pairs
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int = 0, block_q: int = 512,
+                        block_kv: int = 512, q_offset: int = 0
+                        ) -> torch.Tensor:
+    """Online-softmax attention over blocks, visiting only the block pairs
+    that can hold unmasked entries.
+
+    q: (B, Sq, K, G, d) grouped GQA layout (query head h = k * G + g);
+    k, v: (B, Skv, K, d). window: 0 == unlimited, else a causal sliding
+    window of that many positions. q_offset: absolute position of q[0]
+    relative to k[0]. Returns (B, Sq, K, G, d) in q's dtype.
+    """
+    B, Sq, K, G, d = q.shape
+    Skv = k.shape[1]
+    block_q = min(block_q, Sq)
+    block_kv = min(block_kv, Skv)
+    n_q = -(-Sq // block_q)
+    n_kv = -(-Skv // block_kv)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    q32, k32, v32 = q.float(), k.float(), v.float()
+
+    out = torch.zeros((B, n_q * block_q, K, G, d), dtype=torch.float32,
+                      device=dev)
+    m = torch.full((B, K, G, n_q * block_q), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, K, G, n_q * block_q), dtype=torch.float32,
+                    device=dev)
+    q_ids = torch.arange(block_q, device=dev)
+    k_ids = torch.arange(block_kv, device=dev)
+
+    for qi, kj in _block_pairs(n_q, n_kv, block_q, block_kv, causal, window):
+        qs, ks = qi * block_q, kj * block_kv
+        qb = q32[:, qs:qs + block_q]
+        kb = k32[:, ks:ks + block_kv]
+        vb = v32[:, ks:ks + block_kv]
+        nq, nk = qb.shape[1], kb.shape[1]       # the last blocks may be short
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+        q_pos = qs + q_ids[:nq] + q_offset
+        k_pos = ks + k_ids[:nk]
+        mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+
+        mb = m[..., qs:qs + nq]
+        lb = l[..., qs:qs + nq]
+        m_new = torch.maximum(mb, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(mb - m_new)
+        l[..., qs:qs + nq] = lb * corr + p.sum(dim=-1)
+        m[..., qs:qs + nq] = m_new
+        pv = torch.einsum("bkgqs,bskd->bqkgd", p, vb)
+        out[:, qs:qs + nq] = (out[:, qs:qs + nq]
+                              * corr.permute(0, 3, 1, 2)[..., None] + pv)
+
+    denom = l.permute(0, 3, 1, 2)[..., None]
+    out = out / torch.clamp(denom, min=1e-30)
+    return out[:, :Sq].to(q.dtype)
+
+
+def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, *, pos: int,
+                            window: int = 0) -> torch.Tensor:
+    """Single-token attention against a cache.
+
+    q: (B, 1, K, G, d); k_cache / v_cache: (B, S, K, d); pos: the number of
+    valid cache entries (the new token's absolute position + 1). q is
+    rounded to the cache's dtype and the probabilities to v's before each
+    product, as in the reference; the products run in float32.
+    """
+    B, _, K, G, d = q.shape
+    S = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(k_cache.dtype).float(),
+                     k_cache.float()) * scale
+    ids = torch.arange(S, device=q.device)
+    valid = ids < pos
+    if window > 0:
+        valid &= ids > pos - 1 - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int
+                 ) -> torch.Tensor:
+    """(B, S, H*hd) -> grouped (B, S, K, G, hd), query head h = k * G + g."""
+    B, S, _ = x.shape
+    return x.reshape(B, S, n_kv, n_heads // n_kv, head_dim)
+
+
+def _split_kv(x: torch.Tensor, n_kv: int, head_dim: int) -> torch.Tensor:
+    B, S, _ = x.shape
+    return x.reshape(B, S, n_kv, head_dim)
+
+
+def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                 head_dim: int, rope_theta, positions=None,
+                 causal: bool = True, window: int = 0, block_q: int = 512,
+                 block_kv: int = 512):
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)),
+    the cache entries in the compact (B, S, K, hd) layout."""
+    B, S, _ = x.shape
+    q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
+                     head_dim)
+    k = _split_kv(x @ params["wk"].to(x.dtype), n_kv_heads, head_dim)
+    v = _split_kv(x @ params["wv"].to(x.dtype), n_kv_heads, head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_kv=block_kv)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype), (k, v)
+
+
+def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, *, pos: int, n_heads: int,
+                n_kv_heads: int, head_dim: int, rope_theta, window: int = 0):
+    """One-token decode. x: (B, 1, D); cache: (B, S, K, hd), written in
+    place at index ``pos``. Returns (out, cache_k, cache_v)."""
+    B = x.shape[0]
+    q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
+                     head_dim)
+    k = _split_kv(x @ params["wk"].to(x.dtype), n_kv_heads, head_dim)
+    v = _split_kv(x @ params["wv"].to(x.dtype), n_kv_heads, head_dim)
+    if rope_theta is not None:
+        p = torch.full((1,), pos, device=x.device)
+        q = apply_rope(q, p, rope_theta)
+        k = apply_rope(k, p, rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    out = attention_scores_decode(q, cache_k, cache_v, pos=pos + 1,
+                                  window=window)
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v

@@ -1,4 +1,6 @@
-"""The CUDA rule-match kernel against its plain PyTorch versions on the card.
+"""The CUDA rule-match kernel against its plain PyTorch versions on the card,
+and the route scorer (``LMServer``, its MCT filter on the kernel) on the card
+against the same server on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda_device`` fixture, which skips
 with a reason where there is no card. This file imports neither JAX nor the
@@ -6,10 +8,13 @@ JAX package, so it runs on a machine with the card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core.compiler import compile_rules
 from repro_torch.core.encoder import encode_queries
 from repro_torch.core.engine import ErbiumEngine
@@ -17,6 +22,8 @@ from repro_torch.core.rules import generate_queries, generate_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels import rule_match as rm
 from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
+from repro_torch.models.registry import build_model
+from repro_torch.serve import LMServer, Request
 
 SHAPES = [(64, 128, 8, 64, 128), (128, 256, 26, 64, 128),
           (256, 512, 31, 256, 512), (32, 512, 3, 32, 256),
@@ -186,3 +193,76 @@ def test_refused_launch_raises_and_never_falls_back(cuda_device, monkeypatch):
         rm.rule_match_packed(torch.zeros((32, C), dtype=torch.int32,
                                          device=dev), bounds, wk, crit)
     assert rm.rule_match.launches == before
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 products in full float32 on the card (TF32 off)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _lm_servers(dev, filters=(None, None), **kw):
+    """A 2-layer float32 reduced llama3.2-3b on the CPU and on the card,
+    the same weights in both; ``filters``: their rule filters."""
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              n_layers=2, dtype="float32",
+                              param_dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    return (LMServer(cfg, params, device="cpu", rule_filter=filters[0], **kw),
+            LMServer(cfg, params, device=dev, rule_filter=filters[1], **kw))
+
+
+@pytest.mark.gpu
+def test_lm_server_on_card_equals_cpu(cuda_device, no_tf32):
+    cpu, gpu = _lm_servers(cuda_device, max_seq=32)
+    reqs = [Request(rid=0, tokens=np.asarray([3, 5, 7, 11, 2], np.int32),
+                    max_new_tokens=6),
+            Request(rid=1, tokens=np.asarray([9, 4], np.int32),
+                    max_new_tokens=4),
+            Request(rid=2, tokens=np.arange(1, 29, dtype=np.int32),
+                    max_new_tokens=8)]      # hits max_seq: truncated
+    want = cpu.generate_batch(reqs)
+    got = gpu.generate_batch(reqs)
+    assert [c.rid for c in got] == [c.rid for c in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        assert g.truncated == w.truncated
+    # every row decodes from the longest prompt: rows 0 and 2 run out of room
+    assert [c.truncated for c in got] == [True, False, True]
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cpu.cfg.vocab, (2, 12)), dtype=torch.long)
+    lg_cpu = cpu.model.logits(cpu.params, {"tokens": toks})
+    lg_gpu = gpu.model.logits(gpu._params_on(cuda_device),
+                              {"tokens": toks.to(cuda_device)})
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_server_rule_filter_launches_the_kernel(cuda_device, no_tf32):
+    rs = generate_rules(150, version=2, seed=3)
+    table = compile_rules(rs)
+    cpu_eng = ErbiumEngine(table, device="cpu")
+    gpu_eng = ErbiumEngine(table, device=cuda_device)
+    qs = generate_queries(rs, 6, seed=5, match_bias=1.0)
+    dec = cpu_eng.match_queries(qs)[0].numpy()
+    mct = np.where(dec >= 0, dec, table.default_decision)
+    reqs = [Request(rid=i, tokens=np.asarray([1 + i, 2, 3], np.int32),
+                    max_new_tokens=3, mct_queries=[qs[2 * i], qs[2 * i + 1]],
+                    connect_minutes=[int(mct[2 * i]) + 30,
+                                     0 if i == 1 else int(mct[2 * i + 1])])
+            for i in range(3)]
+    cpu, gpu = _lm_servers(cuda_device, (cpu_eng, gpu_eng), max_seq=16)
+    want = cpu.generate_batch(reqs)
+    before = rm.rule_match.launches
+    got = gpu.generate_batch(reqs)
+    assert rm.rule_match.launches == before + 1
+    assert [c.rid for c in got] == [c.rid for c in want] == [0, 2]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
