@@ -31,9 +31,20 @@ Phases, in order; any failure exits non-zero:
   7. the paper's deployment analysis from this card's numbers: stage times
      at B = 256, 1024, 4096, the fig 7-10 series and the fig 11 Pareto
      front, tables 2 and 3 (table 2 within 3% of the paper), and the H100
-     cost balance from the measured host and card rates.
-It then prints JSON lines for phases 7 and 6 and the kernels and, last, the
-device line.
+     cost balance from the measured host and card rates;
+  8. the serving stack (repro_torch.serve): build() with two colocated
+     replicas of the full-width llama3.2-3b behind phase 4's engine, cache
+     and trace on; phase 6's requests served in sync mode, then pipelined
+     through the replica threads, then again with fresh rids, then with new
+     prompts live through a session; checks (e)
+     pipelined tokens equal sync tokens, (f) the dropped set against
+     cpu_match_numpy's decisions, (g) the cache's accounting and a second
+     wave of hits, (h) one rule-match launch a filtered batch, from the
+     replica threads, none for cache hits, (i) the trace against the run
+     report; qps, latency by stage, per-replica device busy and idle, the
+     BottleneckMonitor's class.
+It then prints JSON lines for phases 7, 6 and 8 and the kernels and, last,
+the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
@@ -68,6 +79,11 @@ F32_TOL = 1e-3                      # atol = rtol
 # phase 7: the paper's deployment series at the batch of fig 7-11
 DEPLOY_BATCH = 4096
 STAGE_BATCHES = (256, 1024, 4096)
+# phase 8: the second wave's rids and logical arrivals follow the first's;
+# a filtered content stays remembered for a minute of logical time
+SERVE_WAVE_RID = 1000
+SERVE_WAVE_GAP_S = 1.0
+SERVE_NEGATIVE_TTL = 60.0
 
 
 def fail(msg: str) -> None:
@@ -613,6 +629,45 @@ def top_device_ops(fn, n: int = 8):
     return by_time(ops), by_time(kernels), total, launches
 
 
+def scorer_requests(engine, queries, vocab: int):
+    """Phase 6's requests: LM_REQUESTS of 16-48 prompt tokens and
+    LM_NEW_TOKENS new ones, 2-6 MCT queries each from phase 4's workload,
+    arrivals 2 ms apart. Connect times come from the host's decisions: each
+    connection gets its MCT + 30 minutes, and about half the requests one
+    connection of 0 minutes. Returns the requests and the rids that
+    ``cpu_match_numpy``'s decisions make infeasible."""
+    import numpy as np
+    from repro_torch.core.engine import cpu_match_numpy
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i in range(LM_REQUESTS):
+        plen = int(rng.integers(16, 49))
+        nq = int(rng.integers(2, 7))
+        reqs.append(Request(
+            rid=i, tokens=rng.integers(0, vocab, plen).astype(np.int32),
+            max_new_tokens=LM_NEW_TOKENS, arrival=i * 0.002,
+            mct_queries=[queries[j] for j in
+                         rng.integers(0, len(queries), nq)]))
+    flat = [q for r in reqs for q in r.mct_queries]
+    dec = cpu_match_numpy(engine.table, engine.encode_queries_host(flat),
+                          block=128)[0]
+    mct = np.where(dec >= 0, dec, engine.table.default_decision)
+    expect_drop, j = set(), 0
+    for r in reqs:
+        n = len(r.mct_queries)
+        need = mct[j:j + n]
+        j += n
+        have = need + 30
+        if rng.random() < 0.5:
+            have[rng.integers(0, n)] = 0
+        r.connect_minutes = [int(x) for x in have]
+        if (have < need).any():
+            expect_drop.add(r.rid)
+    return reqs, expect_drop
+
+
 def phase_route_scorer(dev, engine, queries, card: str):
     """LMServer on the full-width llama3.2-3b in bf16, its MCT filter on
     phase 4's engine (the CUDA rule-match kernel); checks (a)-(d).
@@ -621,7 +676,6 @@ def phase_route_scorer(dev, engine, queries, card: str):
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.core.engine import cpu_match_numpy
     from repro_torch.device import synchronize
     from repro_torch.kernels.rule_match import rule_match
     from repro_torch.serve import LMServer, Request, form_batch_groups
@@ -644,33 +698,7 @@ def phase_route_scorer(dev, engine, queries, card: str):
           f"sequence ({kv_tok * 8 * LM_MAX_SEQ} bytes at B = 8, S = "
           f"{LM_MAX_SEQ})")
 
-    rng = np.random.default_rng(11)
-    reqs = []
-    for i in range(LM_REQUESTS):
-        plen = int(rng.integers(16, 49))
-        nq = int(rng.integers(2, 7))
-        reqs.append(Request(
-            rid=i, tokens=rng.integers(0, cfg.vocab, plen).astype(np.int32),
-            max_new_tokens=LM_NEW_TOKENS, arrival=i * 0.002,
-            mct_queries=[queries[j] for j in
-                         rng.integers(0, len(queries), nq)]))
-    # connect times from the host's decisions: each connection gets its MCT
-    # + 30 minutes, and about half the requests one connection of 0 minutes
-    flat = [q for r in reqs for q in r.mct_queries]
-    dec = cpu_match_numpy(engine.table, engine.encode_queries_host(flat),
-                          block=128)[0]
-    mct = np.where(dec >= 0, dec, engine.table.default_decision)
-    expect_drop, j = set(), 0
-    for r in reqs:
-        n = len(r.mct_queries)
-        need = mct[j:j + n]
-        j += n
-        have = need + 30
-        if rng.random() < 0.5:
-            have[rng.integers(0, n)] = 0
-        r.connect_minutes = [int(x) for x in have]
-        if (have < need).any():
-            expect_drop.add(r.rid)
+    reqs, expect_drop = scorer_requests(engine, queries, cfg.vocab)
 
     srv.warmup((1, 2, 4, 8))
     groups = form_batch_groups(reqs, target_batch=8, deadline=0.01)
@@ -812,6 +840,243 @@ def phase_route_scorer(dev, engine, queries, card: str):
                 c_ratio=diff / scale, d_max_abs=d_err)
 
 
+def phase_serving(dev, engine, queries, card: str):
+    """The serving stack on the card: ``build()`` + ``Server.serve`` with
+    two colocated replicas of the full-width llama3.2-3b behind phase 4's
+    engine; phase 6's requests in sync mode (a cache-free facade over the
+    same replicas), then pipelined through the replica threads, then again
+    with fresh rids (all cache hits), and last, with new prompts, live
+    through a session (bounded admission, arrivals in real time). Checks
+    (e)-(i)."""
+    import dataclasses
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rule_match import rule_match
+    from repro_torch.serve import (BottleneckMonitor, CapacitySignals,
+                                   ServeConfig, Server, build)
+
+    t_phase = time.perf_counter()
+    cfg = ServeConfig(model=ARCH, reduced=False, device=dev,
+                      rule_filter=engine, replicas=2, target_batch=8,
+                      deadline=0.01, max_seq=LM_MAX_SEQ,
+                      cache={"negative_ttl": SERVE_NEGATIVE_TTL}, trace=True,
+                      warmup=(1, 2, 4, 8))
+    t0 = time.perf_counter()
+    srv = build(cfg)
+    t_build = time.perf_counter() - t0
+    vocab = srv.engine.cfg.vocab
+    wave1, expect_drop = scorer_requests(engine, queries, vocab)
+    wave2 = [dataclasses.replace(r, rid=r.rid + SERVE_WAVE_RID,
+                                 arrival=r.arrival + SERVE_WAVE_GAP_S)
+             for r in wave1]
+    print(f"serving ({card}): build() of {ARCH} at full width with 2 "
+          f"colocated replicas and warmup (1, 2, 4, 8) in {t_build:.2f} s")
+
+    # which threads call the filter: the replica workers in pipelined mode
+    callers = {}
+    match = engine.match
+
+    def counted_match(encoded):
+        name = threading.current_thread().name
+        callers[name] = callers.get(name, 0) + 1
+        return match(encoded)
+    engine.match = counted_match
+    try:
+        sync_srv = Server(srv.group, dataclasses.replace(cfg, cache=None,
+                                                         trace=None))
+        rule_match.launches = 0
+        t0 = time.perf_counter()
+        sync_out = sync_srv.serve(wave1, mode="sync")
+        sync_s = time.perf_counter() - t0
+        sync_launches = rule_match.launches
+        sync_callers = dict(callers)
+        sync_rep = sync_srv.report()
+        callers.clear()
+
+        rule_match.launches = 0
+        t0 = time.perf_counter()
+        pipe_out = srv.serve(wave1, mode="pipelined")
+        pipe_s = time.perf_counter() - t0
+        pipe_launches = rule_match.launches
+        pipe_callers = dict(callers)
+        rep1 = srv.report()
+        n_dev1 = len(rep1.batch_sizes)
+        t0 = time.perf_counter()
+        hit_out = srv.serve(wave2, mode="pipelined")
+        hit_s = time.perf_counter() - t0
+        wave2_launches = rule_match.launches - pipe_launches
+        rep, trep = srv.report(), srv.trace_report()
+
+        # live: new prompts (so no cache hits), the same connections, each
+        # request submitted at its arrival time
+        wave3 = [dataclasses.replace(r, rid=r.rid + 2 * SERVE_WAVE_RID,
+                                     tokens=(r.tokens + 1) % vocab)
+                 for r in wave1]
+        sched = srv.session(policy="block")
+        callers.clear()
+        before = rule_match.launches
+        snap0 = sched.metrics.snapshot(time.perf_counter())
+        t0 = time.perf_counter()
+        for r in wave3:
+            wait = t0 + r.arrival - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            sched.submit(r)
+        live_out = sched.result()
+        live_s = time.perf_counter() - t0
+        snap1 = sched.metrics.snapshot(time.perf_counter())
+        live_launches = rule_match.launches - before
+        live_callers = dict(callers)
+        live_rep = sched.report()
+    finally:
+        engine.match = match
+
+    sync_by = {c.rid: c for c in sync_out}
+    pipe_by = {c.rid: c for c in pipe_out}
+    served = sorted(sync_by)
+    bad = [rid for rid in served if rid not in pipe_by
+           or not np.array_equal(pipe_by[rid].tokens, sync_by[rid].tokens)
+           or pipe_by[rid].batch_size != sync_by[rid].batch_size]
+    print(f"check (e): pipelined against sync, {len(served)} served "
+          f"requests: tokens and batch sizes equal for "
+          f"{len(served) - len(bad)}, served sets equal "
+          f"{sorted(pipe_by) == served}")
+    if bad or sorted(pipe_by) != served:                           # (e)
+        fail(f"(e) pipelined and sync disagree on requests {bad}")
+
+    ids = {r.rid for r in wave1}
+    sync_drop, pipe_drop = ids - set(sync_by), ids - set(pipe_by)
+    print(f"check (f): dropped sync {sorted(sync_drop)}, pipelined "
+          f"{sorted(pipe_drop)}, cpu_match_numpy {sorted(expect_drop)}")
+    if not sync_drop == pipe_drop == expect_drop:                  # (f)
+        fail("(f) the serving stack's filter drops other requests than "
+             "cpu_match_numpy's decisions")
+
+    c = rep.cache
+    n_sub = len(wave1) + len(wave2)
+    acct = c["hits"] + c["misses"] + c["coalesced"] \
+        + c.get("negative_hits", 0)
+    wave2_hits = c["hits"] - rep1.cache["hits"]
+    wave2_neg = c.get("negative_hits", 0) - rep1.cache.get("negative_hits",
+                                                             0)
+    hit_by = {x.rid - SERVE_WAVE_RID: x for x in hit_out}
+    minted_ok = sorted(hit_by) == served and all(
+        np.array_equal(hit_by[rid].tokens, sync_by[rid].tokens)
+        for rid in served)
+    print(f"check (g): cache {c}; hits + misses + coalesced + negative hits "
+          f"= {acct}, submitted {n_sub}; second wave {wave2_hits} hits + "
+          f"{wave2_neg} negative hits of {len(wave2)}, minted tokens equal "
+          f"{minted_ok}")
+    if acct != n_sub or wave2_hits + wave2_neg != len(wave2) \
+            or wave2_hits != len(served) or not minted_ok:         # (g)
+        fail("(g) the cache's accounting or the second wave's hits are off")
+
+    n_sync_batches = len(sync_rep.batch_sizes)
+    worker_calls = sum(n for name, n in pipe_callers.items()
+                       if name != threading.main_thread().name)
+    print(f"check (h): rule-match launches sync {sync_launches} for "
+          f"{n_sync_batches} filtered batches (callers {sync_callers}), "
+          f"pipelined {pipe_launches} for {n_dev1} (callers {pipe_callers}),"
+          f" cached wave {wave2_launches}")
+    if sync_launches != n_sync_batches or pipe_launches != n_dev1 \
+            or wave2_launches != 0 or worker_calls != pipe_launches:  # (h)
+        fail("(h) rule-match launches do not follow the filtered batches")
+
+    # a replay has no submit-side stages: encode, device and the counts
+    # reconcile (spans reuse the clock readings handed to the metrics)
+    mism = []
+    for stage, part in (("encode", "encode"), ("device_execute", "device")):
+        a, b = trep.stages[stage].as_dict(), rep.breakdown[part].as_dict()
+        if a["n"] != b["n"] or any(abs(a[k] - b[k]) > 1e-6 * max(1.0, b[k])
+                                   for k in a if k != "n"):
+            mism.append(stage)
+    if trep.counts.get("complete", 0) != rep.n_completed:
+        mism.append("complete")
+    for r, rs in rep.per_replica.items():
+        ts = trep.per_replica.get(r)
+        if rs.n_batches and (ts is None or ts.n_batches != rs.n_batches
+                             or ts.n_requests != rs.n_requests):
+            mism.append(f"replica {r}")
+    print(f"check (i): trace counts {dict(sorted(trep.counts.items()))}; "
+          f"run report: {rep.n_completed} completed, {len(rep.batch_sizes)} "
+          f"batches; disagreements {mism}")
+    if mism:                                                       # (i)
+        fail(f"(i) the trace and the run report disagree on {mism}")
+
+    live_by = {x.rid - 2 * SERVE_WAVE_RID: x for x in live_out}
+    lc = live_rep.cache
+    live_acct = lc["hits"] + lc["misses"] + lc["coalesced"] \
+        + lc.get("negative_hits", 0)
+    n_live = len(live_rep.batch_sizes)
+    live_workers = sum(n for name, n in live_callers.items()
+                       if name != threading.main_thread().name)
+    print(f"live session: {len(live_out)} served, dropped "
+          f"{sorted(ids - set(live_by))}; cache {lc}, submitted "
+          f"{sched.n_submitted}; {n_live} batches of "
+          f"{live_rep.batch_sizes}, rule-match launches {live_launches} "
+          f"(callers {live_callers})")
+    if ids - set(live_by) != expect_drop or live_acct != sched.n_submitted \
+            or live_launches != n_live or live_workers != n_live:
+        fail("(f)-(h) the live session's drops, accounting or launches "
+             "are off")
+
+    # the capacity monitor's class for the live window (arrivals recorded)
+    sig = CapacitySignals.between(snap0, snap1, queue_depth=0,
+                                  admission_limit=cfg.max_queue,
+                                  n_active_replicas=2)
+    diagnosis = BottleneckMonitor(confirm=1).observe(sig)
+
+    def pct(report, part):
+        b = report.breakdown[part]
+        return f"p50 {b.p50_ms:.3f} / p95 {b.p95_ms:.3f} / p99 " \
+               f"{b.p99_ms:.3f} ms (n {b.n})"
+    print(f"serving qps ({card}), completed requests a second: sync "
+          f"{sync_rep.achieved_qps:.4f} ({sync_s:.3f} s for {len(wave1)} "
+          f"requests), pipelined {rep1.achieved_qps:.4f} ({pipe_s:.3f} s), "
+          f"live {live_rep.achieved_qps:.4f} ({live_s:.3f} s); cached wave "
+          f"{len(wave2) / hit_s:.1f} requests a second "
+          f"({hit_s * 1e3:.3f} ms)")
+    for name, report in (("pipelined", rep1), ("live", live_rep)):
+        print(f"serving latency by stage ({card}), {name}: queue "
+              f"{pct(report, 'queue_wait')}; encode "
+              f"{pct(report, 'encode')}; device {pct(report, 'device')}")
+        for r, st in sorted(report.per_replica.items()):
+            print(f"serving replica {r} ({card}), {name}: {st.n_batches} "
+                  f"batches, {st.n_requests} requests, device busy "
+                  f"{st.busy_s:.4f} s, idle fraction "
+                  f"{st.idle_fraction:.4f} of {report.span_s:.4f} s")
+    print(f"serving bottleneck (live window): {diagnosis} (arrivals "
+          f"{sig.arrival_rate:.2f}/s, host busy {sig.host_busy_fraction:.4f},"
+          f" device idle {sig.device_idle_fraction:.4f} a replica over "
+          f"{sig.window_s:.4f} s)")
+    print(f"serving launches: sync {sync_launches}, pipelined "
+          f"{pipe_launches}, cached wave {wave2_launches}, live "
+          f"{live_launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 8 took {wall:.1f} s")
+    del srv, sync_srv, sched
+    torch.cuda.empty_cache()
+    return dict(
+        sync_s=sync_s, pipelined_s=pipe_s, cached_s=hit_s, live_s=live_s,
+        sync_qps=sync_rep.achieved_qps, pipelined_qps=rep1.achieved_qps,
+        live_qps=live_rep.achieved_qps,
+        launches=sync_launches + pipe_launches + wave2_launches
+        + live_launches,
+        launches_sync=sync_launches, launches_pipelined=pipe_launches,
+        launches_cached=wave2_launches, launches_live=live_launches,
+        batches=n_dev1, live_batches=live_rep.batch_sizes,
+        served=len(served), dropped=len(expect_drop),
+        breakdown={k: v.as_dict() for k, v in rep1.breakdown.items()},
+        live_breakdown={k: v.as_dict()
+                        for k, v in live_rep.breakdown.items()},
+        per_replica={r: st.as_dict() for r, st in rep1.per_replica.items()},
+        live_per_replica={r: st.as_dict()
+                          for r, st in live_rep.per_replica.items()},
+        diagnosis=str(diagnosis), cache=c, build_s=t_build, wall_s=wall,
+        checks={k: True for k in "efghi"})
+
+
 def phase_deployment(engine, queries, timed, card: str):
     """The paper's deployment analysis (figs 7-11, tables 2-3) and the H100
     cost balance, from this card's stage times and lane time."""
@@ -941,6 +1206,7 @@ def main() -> None:
     deploy = phase_deployment(engine, queries, timed, card)
     print(f"phase 6 took {t1 - t0:.1f} s, phase 7 "
           f"{time.perf_counter() - t1:.1f} s")
+    serving = phase_serving(dev, engine, queries, card)
     print(json.dumps({"deployment": deploy}))
     print(json.dumps({"route_scorer": {"card": card, **{
         k: scorer[k] for k in ("batches", "requests", "served", "dropped",
@@ -949,12 +1215,19 @@ def main() -> None:
                                "decode_step_device_ms",
                                "decode_step_bound_ms", "peak_bytes",
                                "checks")}}}))
+    print(json.dumps({"serving": {"card": card, **serving}}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches + scorer["launches"],
+        "replaces": REPLACES,
+        "launches": launches + scorer["launches"] + serving["launches"],
         "launches_by_path": {"mct_wrapper": launches,
-                             "route_scorer": scorer["launches"]},
+                             "route_scorer": scorer["launches"],
+                             "serving_sync": serving["launches_sync"],
+                             "serving_pipelined":
+                                 serving["launches_pipelined"],
+                             "serving_cached": serving["launches_cached"],
+                             "serving_live": serving["launches_live"]},
         "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "plain_packed_ms": t["plain_packed_ms"],

@@ -12,6 +12,7 @@ and MCT query encoding, numpy only) and a device-side **execute** stage
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -97,6 +98,9 @@ class LMServer:
         # attention), so padding never changes per-request results
         self.pad_batches = pad_batches
         self._dev_params: Dict[torch.device, object] = {}
+        # replica workers call execute_prepared from their own threads: one
+        # copy of the parameters per device, never two at once
+        self._params_lock = threading.Lock()
 
     # -- host-side prepare stage ----------------------------------------------
     def prepare_batch(self, requests: Sequence[Request]) -> PreparedBatch:
@@ -126,7 +130,14 @@ class LMServer:
                          device=None) -> List[Completion]:
         """Run the device half: MCT rule matching (drops infeasible
         requests), then the batched prefill + decode loop on ``device``
-        (default: the server's)."""
+        (default: the server's). Safe to call from several threads.
+
+        Returns only after the card has finished the batch: the decode
+        loop reads every step's tokens back with ``.cpu()`` (the prefill
+        ends in ``synchronize``), and a batch the filter empties ends in
+        the ``.cpu()`` copy of its decisions. The serving stack's worker
+        threads time the device-busy interval on the host clock around this
+        call and rely on that."""
         rs = pb.requests
         if not rs:
             return []
@@ -163,9 +174,10 @@ class LMServer:
 
     def _params_on(self, device: torch.device):
         """The parameters on ``device``, copied there once and cached."""
-        if device not in self._dev_params:
-            self._dev_params[device] = _tree_to(self.params, device)
-        return self._dev_params[device]
+        with self._params_lock:
+            if device not in self._dev_params:
+                self._dev_params[device] = _tree_to(self.params, device)
+            return self._dev_params[device]
 
     @torch.inference_mode()
     def _run_decode(self, rs: List[Request], toks: np.ndarray,

@@ -1,6 +1,7 @@
 """The CUDA rule-match kernel against its plain PyTorch versions on the card,
-and the route scorer (``LMServer``, its MCT filter on the kernel) on the card
-against the same server on the CPU.
+the route scorer (``LMServer``, its MCT filter on the kernel) on the card
+against the same server on the CPU, and the serving stack (``serve()`` with
+two replicas on one card) against that server on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda_device`` fixture, which skips
 with a reason where there is no card. This file imports neither JAX nor the
@@ -9,6 +10,7 @@ JAX package, so it runs on a machine with the card and no JAX:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rule_match as rm
 from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
 from repro_torch.models.registry import build_model
-from repro_torch.serve import LMServer, Request
+from repro_torch.serve import (LMServer, Request, ServeConfig, build,
+                               form_batch_groups)
 
 SHAPES = [(64, 128, 8, 64, 128), (128, 256, 26, 64, 128),
           (256, 512, 31, 256, 512), (32, 512, 3, 32, 256),
@@ -266,3 +269,57 @@ def test_lm_server_rule_filter_launches_the_kernel(cuda_device, no_tf32):
     assert [c.rid for c in got] == [c.rid for c in want] == [0, 2]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["replicas", "devices"])
+def test_serve_two_replicas_on_card_equal_cpu(cuda_device, no_tf32,
+                                              topology):
+    """serve() on the reduced float32 model with two replicas on one card
+    (colocated, or pinned to two spellings of the card): pipelined tokens
+    equal sync tokens equal the CPU server's, and the filter launches the
+    kernel once a batch from the replica threads."""
+    rs = generate_rules(150, version=2, seed=3)
+    table = compile_rules(rs)
+    cpu_eng = ErbiumEngine(table, device="cpu")
+    gpu_eng = ErbiumEngine(table, device=cuda_device)
+    qs = generate_queries(rs, 24, seed=5, match_bias=1.0)
+    dec = cpu_eng.match_queries(qs)[0].numpy()
+    mct = np.where(dec >= 0, dec, table.default_decision)
+    reqs = [Request(rid=i, tokens=np.arange(1 + i, 4 + i + i % 5,
+                                            dtype=np.int32),
+                    max_new_tokens=3 + i % 3, arrival=i * 0.002,
+                    mct_queries=[qs[2 * i], qs[2 * i + 1]],
+                    connect_minutes=[int(mct[2 * i]) + 30,
+                                     0 if i % 3 == 1 else int(mct[2 * i + 1])])
+            for i in range(12)]
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              dtype="float32", param_dtype="float32")
+    topo = dict(replicas=2) if topology == "replicas" \
+        else dict(devices=[cuda_device, "cuda"])
+    srv = build(ServeConfig(model=cfg, reduced=False, device=cuda_device,
+                            rule_filter=gpu_eng, max_seq=32, target_batch=4,
+                            deadline=0.005, **topo))
+    groups = form_batch_groups(reqs, target_batch=4, deadline=0.005)
+    sync = {c.rid: c for c in srv.serve(reqs, mode="sync")}
+    callers = []
+    match = gpu_eng.match
+
+    def counted(encoded):
+        callers.append(threading.current_thread().name)
+        return match(encoded)
+    gpu_eng.match = counted
+    before = rm.rule_match.launches
+    pipe = {c.rid: c for c in srv.serve(reqs, mode="pipelined")}
+    assert rm.rule_match.launches == before + len(groups)
+    assert len(callers) == len(groups)
+    assert threading.main_thread().name not in callers
+    cpu = LMServer(cfg, srv.engine._params_on(torch.device("cpu")),
+                   device="cpu", rule_filter=cpu_eng, max_seq=32)
+    want = {c.rid: c for g in groups for c in cpu.generate_batch(g)}
+    assert sorted(pipe) == sorted(sync) == sorted(want)
+    assert {r.rid for r in reqs} - set(want) == {1, 4, 7, 10}
+    for rid, w in want.items():
+        np.testing.assert_array_equal(sync[rid].tokens, w.tokens)
+        np.testing.assert_array_equal(pipe[rid].tokens, w.tokens)
+        assert pipe[rid].batch_size == sync[rid].batch_size == w.batch_size
