@@ -13,16 +13,23 @@ size of the committed baseline's capacity section; the cache sweep runs
 the one Zipf skew the baseline holds (1.1).
 
     PYTHONPATH=src python3 benchmarks/torch_serve_sim.py [--out PATH]
+    PYTHONPATH=src python3 benchmarks/torch_serve_sim.py --against-reference
 
 Writes the fresh sections in BENCH_endtoend.json's schema to
 ``build/torch_serve_sim.json`` (or ``--out``), prints each gated number
-beside its baseline, and exits 1 when one falls below its floor. The
-numbers are wall-clock throughput of simulated engines: they measure the
-host that runs the script, not an accelerator.
+beside its baseline, and exits 1 when one falls below its floor. With
+``--against-reference`` the baseline is instead the JAX package's own
+``repro.serve`` running the same sweeps in this process, in alternating
+turns with the port's (three of each): the gate holds the port's
+median within 15% of the reference's median on this host, and the script
+exits 2 where JAX or the JAX package cannot be imported. The numbers are
+wall-clock throughput of simulated engines: they measure the host that
+runs the script, not an accelerator.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -64,19 +71,23 @@ CAPACITY_PHASES = {
     "balanced": [(0.6, 1000.0), (1.2, 3000.0), (0.6, 2000.0)],
 }
 TOLERANCE = 0.15                  # check_regression.py's default
+REFERENCE_TURNS = 3               # turns of each package, same-run gate
 
-RESULTS: list = []
+PORT, REFERENCE = "repro_torch", "repro"
 
 
-def emit(name: str, us_per_call: float, derived: str, **extra) -> None:
+def emit(results: list, name: str, us_per_call: float, derived: str,
+         **extra) -> None:
     print(f"{name},{us_per_call:.1f},{derived}")
-    RESULTS.append({"name": name, "us_per_call": float(us_per_call),
+    results.append({"name": name, "us_per_call": float(us_per_call),
                     "derived": derived, **extra})
 
 
-def replica_sweep() -> None:
+def replica_sweep(pkg: str, results: list) -> None:
     """Aggregate throughput against replica count behind one dispatcher."""
-    from repro_torch.serve import ServeConfig, SimServer, build, sim_requests
+    serve = importlib.import_module(f"{pkg}.serve")
+    ServeConfig, SimServer = serve.ServeConfig, serve.SimServer
+    build, sim_requests = serve.build, serve.sim_requests
     base_qps = None
     host_cap_qps = 1e3 / SIM_HOST_MS * TARGET_BATCH
     for r in REPLICA_COUNTS:
@@ -92,7 +103,7 @@ def replica_sweep() -> None:
         qps = len(outs) / dt
         base_qps = base_qps or qps
         rep = srv.report()
-        emit(f"fig13_replicas_{r}", dt / len(outs) * 1e6,
+        emit(results, f"fig13_replicas_{r}", dt / len(outs) * 1e6,
              f"replicas={r} achieved={qps:.0f}qps scale={qps / base_qps:.2f}x"
              f" host_cap={host_cap_qps:.0f}qps "
              f"idle={rep.device_idle_fraction:.2f}",
@@ -100,10 +111,12 @@ def replica_sweep() -> None:
              host_cap_qps=host_cap_qps)
 
 
-def cache_sweep() -> list:
+def cache_sweep(pkg: str, results: list) -> list:
     """Two waves of one Zipf key population, cache off and on."""
-    from repro_torch.serve import (CacheConfig, ServeConfig, SimServer,
-                                   build, sim_requests)
+    serve = importlib.import_module(f"{pkg}.serve")
+    CacheConfig, ServeConfig = serve.CacheConfig, serve.ServeConfig
+    SimServer, build = serve.SimServer, serve.build
+    sim_requests = serve.sim_requests
     n = SIM_N_BATCHES * TARGET_BATCH
     host_cap_qps = 1e3 / SIM_HOST_MS * TARGET_BATCH
     points = []
@@ -133,19 +146,23 @@ def cache_sweep() -> list:
                          n_batches_executed=len(rep.batch_sizes),
                          cache=dict(rep.cache))
             points.append(point)
-            emit(f"fig13_cache_a{alpha:g}_{'on' if cached else 'off'}",
+            emit(results,
+                 f"fig13_cache_a{alpha:g}_{'on' if cached else 'off'}",
                  dt / len(outs) * 1e6,
                  f"alpha={alpha:g} qps={point['effective_qps']:.0f} "
                  f"hit={hit_rate:.2f}", **point)
     return points
 
 
-def routing_sweep() -> list:
+def routing_sweep(pkg: str, results: list) -> list:
     """Repeat-heavy recompute traffic under each routing policy, healthy
     and with replica 0 straggling."""
-    from repro_torch.ft.failures import DelayInjector
-    from repro_torch.serve import (CacheConfig, ServeConfig, SimServer,
-                                   build, sim_requests)
+    DelayInjector = importlib.import_module(
+        f"{pkg}.ft.failures").DelayInjector
+    serve = importlib.import_module(f"{pkg}.serve")
+    CacheConfig, ServeConfig = serve.CacheConfig, serve.ServeConfig
+    SimServer, build = serve.SimServer, serve.build
+    sim_requests = serve.sim_requests
     points = []
     for scenario, delay in (("repeat", None), ("straggler", DelayInjector(
             {0: ROUTING_STRAGGLER_S}))):
@@ -183,18 +200,22 @@ def routing_sweep() -> list:
                          affinity_spills=rep.affinity_spills,
                          n_batches_executed=len(rep.batch_sizes))
             points.append(point)
-            emit(f"fig13_routing_{scenario}_{policy}", dt / len(outs) * 1e6,
+            emit(results, f"fig13_routing_{scenario}_{policy}",
+                 dt / len(outs) * 1e6,
                  f"qps={point['effective_qps']:.0f} affinity="
                  f"{rep.affinity_hits}hit/{rep.affinity_spills}spill",
                  **point)
     return points
 
 
-def capacity_sweep() -> list:
+def capacity_sweep(pkg: str, results: list) -> list:
     """Static batch targets against the controller under phased load."""
-    from repro_torch.capacity import CapacityConfig, CostReport
-    from repro_torch.serve import (PhasedOpenLoopGen, ServeConfig, SimServer,
-                                   SyntheticWorkload, build)
+    capacity = importlib.import_module(f"{pkg}.capacity")
+    CapacityConfig, CostReport = capacity.CapacityConfig, capacity.CostReport
+    serve = importlib.import_module(f"{pkg}.serve")
+    PhasedOpenLoopGen, ServeConfig = serve.PhasedOpenLoopGen, serve.ServeConfig
+    SimServer, SyntheticWorkload = serve.SimServer, serve.SyntheticWorkload
+    build = serve.build
 
     def drive(profile, target_batch, capacity=None):
         sched = build(ServeConfig(
@@ -240,7 +261,8 @@ def capacity_sweep() -> list:
                      static_usd_per_1k=srow.usd_per_1k,
                      controlled_usd_per_1k=crow.usd_per_1k)
         points.append(point)
-        emit(f"fig14_{profile}_controlled", 1e6 / max(ctl_qps, 1e-9),
+        emit(results, f"fig14_{profile}_controlled",
+             1e6 / max(ctl_qps, 1e-9),
              f"qps={ctl_qps:.0f} best_static={static[best_tb]:.0f} "
              f"recovered={point['recovered_fraction']:.2f} "
              f"diag={point['diagnosis']}", **point)
@@ -248,18 +270,72 @@ def capacity_sweep() -> list:
     return points
 
 
+def run_sweeps(pkg: str) -> dict:
+    """Every sweep from one package; the payload in BENCH_endtoend.json's
+    schema."""
+    results: list = []
+    replica_sweep(pkg, results)
+    return {"suites": ["fig13", "fig14"], "failed": [], "results": results,
+            "cache": cache_sweep(pkg, results),
+            "routing": routing_sweep(pkg, results),
+            "capacity": capacity_sweep(pkg, results)}
+
+
+def against_reference(turns: int) -> int:
+    """The port's sweeps and the reference's, in alternating turns in this
+    process (port, reference, reference, port, ...), with the same
+    parameters; fails when the port's median of a gated metric falls below
+    (1 - TOLERANCE) of the reference's median on this host."""
+    try:
+        importlib.import_module(f"{REFERENCE}.serve")
+    except ImportError as e:
+        print(f"--against-reference needs the JAX package and JAX: {e}")
+        return 2
+    runs = {PORT: [], REFERENCE: []}
+    order = [(PORT, REFERENCE), (REFERENCE, PORT)]
+    for t in range(turns):
+        for pkg in order[t % 2]:
+            print(f"# turn {t + 1}: {pkg}")
+            runs[pkg].append(collect_metrics(run_sweeps(pkg)))
+    port = {k: float(np.median([m[k] for m in runs[PORT]]))
+            for k in runs[PORT][0]}
+    ref = {k: float(np.median([m[k] for m in runs[REFERENCE]]))
+           for k in runs[REFERENCE][0]}
+    failures = []
+    for key in sorted(ref):
+        got = port.get(key)
+        turns_ = " / ".join(f"{m.get(key, float('nan')):.1f}"
+                            for m in runs[PORT])
+        ref_turns = " / ".join(f"{m[key]:.1f}" for m in runs[REFERENCE])
+        ratio = got / ref[key] if got is not None else float("nan")
+        print(f"same-run {key}: port median {got!r} ({turns_}), reference "
+              f"median {ref[key]!r} ({ref_turns}), ratio {ratio!r}")
+        if got is None or got < (1 - TOLERANCE) * ref[key]:
+            failures.append(f"{key}: port median {got!r} below "
+                            f"{1 - TOLERANCE:.2f} x reference median "
+                            f"{ref[key]!r}")
+    print(f"{len(ref)} gated metrics against the reference in the same run "
+          f"({turns} turns each), {len(failures)} below the floor at "
+          f"{TOLERANCE:.0%}")
+    for msg in failures:
+        print(f"  {msg}")
+    return 1 if failures else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "torch_serve_sim.json"))
     ap.add_argument("--baseline", default=str(ROOT / "BENCH_endtoend.json"))
+    ap.add_argument("--against-reference", action="store_true",
+                    help="gate against the JAX package's sweeps run in "
+                         "turns in this process instead of the baseline")
     args = ap.parse_args(argv)
     print("name,us_per_call,derived")
+    if args.against_reference:
+        return against_reference(REFERENCE_TURNS)
     t0 = time.perf_counter()
-    replica_sweep()
-    payload = {"suites": ["fig13", "fig14"], "failed": [],
-               "results": RESULTS, "cache": cache_sweep(),
-               "routing": routing_sweep(), "capacity": capacity_sweep()}
+    payload = run_sweeps(PORT)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(payload, indent=2))

@@ -42,13 +42,25 @@ Phases, in order; any failure exits non-zero:
      wave of hits, (h) one rule-match launch a filtered batch, from the
      replica threads, none for cache hits, (i) the trace against the run
      report; qps, latency by stage, per-replica device busy and idle, the
-     BottleneckMonitor's class.
-It then prints JSON lines for phases 7, 6 and 8 and the kernels and, last,
-the device line.
+     BottleneckMonitor's class;
+  9. the other model families at full width, one at a time through
+     LMServer behind phase 4's engine: hymba-1.5b (hybrid), xlstm-1.3b
+     (ssm), llama-3.2-vision-11b (vlm), gemma3-1b (dense, 5:1 local) and
+     qwen3-moe-235b-a22b (moe, 4 of 94 layers), bf16 weights drawn on the
+     card from seed 0; 8 of phase 6's requests each with 4 new tokens,
+     checks (j) the dropped set against cpu_match_numpy's, (k) prefill
+     against token-by-token decode, (l) the reduced float32 copy, card
+     against CPU; one decode step at B = 8 timed, profiled and held against
+     its bound by bytes; then one full-width forward of the encoder-only
+     hubert-xlarge.
+It then prints JSON lines for phases 7, 6, 8 and 9 and the kernels and,
+last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -79,6 +91,26 @@ F32_TOL = 1e-3                      # atol = rtol
 # phase 7: the paper's deployment series at the batch of fig 7-11
 DEPLOY_BATCH = 4096
 STAGE_BATCHES = (256, 1024, 4096)
+# phase 9: every other decoder family at full width behind the same filter,
+# 8 of phase 6's requests a model with 4 new tokens; the one depth cut is
+# qwen3's (94 layers would take 470 GB in bf16)
+FAMILY_MODELS = (("hymba-1.5b", None), ("xlstm-1.3b", None),
+                 ("llama-3.2-vision-11b", None), ("gemma3-1b", None),
+                 ("qwen3-moe-235b-a22b", 4))
+FAMILY_REQUESTS = 8
+FAMILY_NEW_TOKENS = 4
+FAMILY_MAX_SEQ = 128
+FAMILY_STEP_POS = 40
+# check (k) for xLSTM runs on a float32 copy: its chunkwise prefill and its
+# recurrent steps drift apart in bf16 with depth, in the JAX package as in
+# the port (about 9% of the largest logit at 16 layers, 38% at 48), while
+# the float32 forms agree; its bf16 ratio is printed, not gated
+F32_PREFILL_ARCHS = ("xlstm-1.3b",)
+F32_PREFILL_REL_TOL = 1e-3
+# check (l): the reduced float32 copy, card against CPU, TF32 off
+FAMILY_F32_TOL = 1e-4               # atol = rtol
+ENCODER_ARCH = "hubert-xlarge"      # encoder-only: one forward, no server
+ENCODER_BATCH, ENCODER_SEQ = 2, 256
 # phase 8: the second wave's rids and logical arrivals follow the first's;
 # a filtered content stays remembered for a minute of logical time
 SERVE_WAVE_RID = 1000
@@ -668,6 +700,32 @@ def scorer_requests(engine, queries, vocab: int):
     return reqs, expect_drop
 
 
+def serve_groups(srv, groups, label: str):
+    """``generate_batch`` on each batch group, one printed row a batch;
+    returns the completions and the rows."""
+    comps, batches = [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        out = srv.generate_batch(g)
+        wall = (time.perf_counter() - t0) * 1e3
+        comps.extend(out)
+        n_tok = sum(len(c.tokens) for c in out)
+        row = dict(requests=len(g), kept=len(out), wall_ms=wall,
+                   tokens=n_tok)
+        if out:
+            pad = 1 << (len(out) - 1).bit_length()
+            pre, dec_ms = out[0].prefill_ms, out[0].decode_ms
+            row.update(padded=pad, prefill_ms=pre, decode_ms=dec_ms,
+                       tokens_per_s=n_tok / ((pre + dec_ms) / 1e3),
+                       prompt_steps=max(len(r.tokens) for r in g
+                                        if r.rid in {c.rid for c in out}))
+        batches.append(row)
+        print(f"{label}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+    return comps, batches
+
+
 def phase_route_scorer(dev, engine, queries, card: str):
     """LMServer on the full-width llama3.2-3b in bf16, its MCT filter on
     phase 4's engine (the CUDA rule-match kernel); checks (a)-(d).
@@ -703,26 +761,7 @@ def phase_route_scorer(dev, engine, queries, card: str):
     srv.warmup((1, 2, 4, 8))
     groups = form_batch_groups(reqs, target_batch=8, deadline=0.01)
     rule_match.launches = 0
-    comps, batches = [], []
-    for g in groups:
-        t0 = time.perf_counter()
-        out = srv.generate_batch(g)
-        wall = (time.perf_counter() - t0) * 1e3
-        comps.extend(out)
-        n_tok = sum(len(c.tokens) for c in out)
-        row = dict(requests=len(g), kept=len(out), wall_ms=wall,
-                   tokens=n_tok)
-        if out:
-            pad = 1 << (len(out) - 1).bit_length()
-            pre, dec_ms = out[0].prefill_ms, out[0].decode_ms
-            row.update(padded=pad, prefill_ms=pre, decode_ms=dec_ms,
-                       tokens_per_s=n_tok / ((pre + dec_ms) / 1e3),
-                       prompt_steps=max(len(r.tokens) for r in g
-                                        if r.rid in {c.rid for c in out}))
-        batches.append(row)
-        print(f"route scorer batch ({card}): " + ", ".join(
-            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in row.items()))
+    comps, batches = serve_groups(srv, groups, f"route scorer batch ({card})")
     launches = rule_match.launches
     if launches != len(groups):
         fail(f"rule-match launches {launches} on the route-scorer path, "
@@ -747,25 +786,14 @@ def phase_route_scorer(dev, engine, queries, card: str):
     # (c) full width, bf16: prefill's last-token logits against decode
     prompt = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
                              device=dev)[None]
-    S = prompt.shape[1]
-    with torch.inference_mode():
-        last, _ = srv.model.prefill(srv.params, {"tokens": prompt})
-        cache = srv.model.init_cache(1, S, device=dev)
-        for t in range(S):
-            lg, cache = srv.model.decode_step(srv.params, cache,
-                                              prompt[:, t:t + 1], t)
-    a, b = lg.float()[0, 0], last.float()[0, 0]
-    diff = float((a - b).abs().max())
-    scale = float(b.abs().max())
-    gap = float(b.topk(2).values.diff().abs()[0])
-    same_top = int(a.argmax()) == int(b.argmax())
-    ok_c = (bool(torch.isfinite(a).all()) and diff <= BF16_REL_TOL * scale
-            and (same_top or gap <= 2 * diff))
-    print(f"check (c): bf16 prefill vs {S} decode steps, last-token logits: "
-          f"max abs diff {diff:.5f}, largest logit {scale:.4f}, ratio "
-          f"{diff / scale:.5f} (limit {BF16_REL_TOL}); top-2 gap {gap:.5f}, "
-          f"same argmax {same_top}")
-    if not ok_c:
+    r = prefill_vs_decode(srv.model, srv.params, {"tokens": prompt}, dev)
+    diff, scale = r["diff"], r["scale"]
+    print(f"check (c): bf16 prefill vs {prompt.shape[1]} decode steps, "
+          f"last-token logits: max abs diff {diff:.5f}, largest logit "
+          f"{scale:.4f}, ratio {r['ratio']:.5f} (limit {BF16_REL_TOL}); "
+          f"top-2 gap {r['gap']:.5f}, same argmax {r['same_top']}")
+    if not (r["finite"] and r["ratio"] <= BF16_REL_TOL
+            and (r["same_top"] or r["gap"] <= 2 * diff)):
         fail("(c) prefill and token-by-token decode disagree")
 
     # one decode step at B = 8: time and the operators that take it
@@ -794,11 +822,7 @@ def phase_route_scorer(dev, engine, queries, card: str):
     # (d) 2 layers, full width, float32, TF32 off: the card against the CPU
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
                                param_dtype="float32")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         gpu = LMServer(cfg2, device=dev, max_seq=64, seed=0)
         cpu = LMServer(cfg2, gpu._params_on(torch.device("cpu")),
                        device="cpu", max_seq=64)
@@ -816,9 +840,6 @@ def phase_route_scorer(dev, engine, queries, card: str):
         t_gpu = [c.tokens for c in gpu.generate_batch(pair)]
         t_cpu = [c.tokens for c in cpu.generate_batch(pair)]
         same = all(np.array_equal(x, y) for x, y in zip(t_gpu, t_cpu))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
     print(f"check (d): 2-layer float32 copy, card vs CPU: logits (2, 16, "
           f"{cfg.vocab}) max abs diff {d_err:.3g} (atol = rtol = "
           f"{F32_TOL}: {close}); greedy tokens equal {same}")
@@ -1169,6 +1190,275 @@ def phase_deployment(engine, queries, timed, card: str):
                         for pf in front])
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """float32 products in full float32 on the card (TF32 off)."""
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+def tree_cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def prefill_vs_decode(model, params, batch, dev) -> dict:
+    """``model.prefill``'s last-token logits against those of decoding the
+    prompt token by token from an empty cache."""
+    import torch
+    prompt = batch["tokens"]
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        last, _ = model.prefill(params, batch)
+        cache = model.init_cache(1, S, device=dev)
+        for t in range(S):
+            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1],
+                                          t)
+    a, b = lg.float()[0, 0], last.float()[0, 0]
+    diff = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    return dict(diff=diff, scale=scale, ratio=diff / scale,
+                gap=float(b.topk(2).values.diff().abs()[0]),
+                same_top=int(a.argmax()) == int(b.argmax()),
+                finite=bool(torch.isfinite(a).all()))
+
+
+def decode_step_bytes(cfg, params, cache, batch: int, pos: int) -> int:
+    """Bytes one decode step at ``pos`` must move: every weight it reads
+    once (an untied embedding only the batch's rows; the VLM's cross
+    attention keys and values come from the cache, so not its ``wk`` and
+    ``wv``), the keys and values of positions 0..pos, the vision keys and
+    values, and each recurrent state read once and written once."""
+    emb = params["embed"]
+    n = tree_bytes(params)
+    if not cfg.tie_embeddings:
+        n -= emb.numel() * emb.element_size() \
+            - batch * cfg.d_model * emb.element_size()
+    for c in params.get("cross", []):
+        n -= tree_bytes([c["attn"]["wk"], c["attn"]["wv"]])
+    runs = cache["runs"] if "runs" in cache else [cache]
+    for leaves_ in runs:
+        for name, t in leaves_.items():
+            b = t.numel() * t.element_size()
+            if name in ("k", "v"):
+                n += b // t.shape[-3] * (pos + 1)       # (..., S, K, hd)
+            elif name in ("xk", "xv"):
+                n += b
+            else:
+                n += 2 * b
+    return n
+
+
+def phase_families(dev, engine, queries, card: str):
+    """Every other decoder family at full width through ``LMServer`` behind
+    phase 4's engine, one model at a time: 8 of phase 6's requests with 4
+    new tokens, then one decode step at B = 8 timed and profiled, with
+    checks (j) the dropped set against cpu_match_numpy's, (k) bf16 prefill
+    against token-by-token decode, (l) the reduced float32 copy on the card
+    against the CPU; then one full-width forward of the encoder-only
+    hubert-xlarge."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.rule_match import rule_match
+    from repro_torch.models.registry import build_model, make_inputs
+    from repro_torch.serve import LMServer, form_batch_groups
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for arch, depth in FAMILY_MODELS:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        gc.collect()                    # the previous model's cycles
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        srv = LMServer(cfg, device=dev, max_seq=FAMILY_MAX_SEQ, seed=0,
+                       rule_filter=engine)
+        synchronize(dev)
+        t_init = time.perf_counter() - t0
+        # the peak from here on: weights resident, serving and the checks
+        torch.cuda.reset_peak_memory_stats(dev)
+        p_bytes = tree_bytes(srv.params)
+        print(f"family {arch} ({cfg.family}): {cfg.n_layers} layers"
+              f"{f' of {get_config(arch).n_layers}' if depth else ''}, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}:"
+              f" {p_bytes} bytes of weights drawn on the card in "
+              f"{t_init:.2f} s")
+
+        reqs, expect_drop = scorer_requests(engine, queries, cfg.vocab)
+        reqs = reqs[:FAMILY_REQUESTS]
+        for r in reqs:
+            r.max_new_tokens = FAMILY_NEW_TOKENS
+        expect_drop &= {r.rid for r in reqs}
+        srv.warmup((8,))
+        groups = form_batch_groups(reqs, target_batch=8, deadline=0.01)
+        rule_match.launches = 0
+        comps, batches = serve_groups(srv, groups, f"{arch} batch ({card})")
+        launches = rule_match.launches
+        if launches != len(groups):
+            fail(f"{arch}: rule-match launches {launches}, {len(groups)} "
+                 "filtered batches")
+        dropped = {r.rid for r in reqs} - {c.rid for c in comps}
+        if dropped != expect_drop:                                 # (j)
+            fail(f"(j) {arch}: dropped {sorted(dropped)}, cpu_match_numpy's"
+                 f" decisions drop {sorted(expect_drop)}")
+        for c in comps:
+            if len(c.tokens) != FAMILY_NEW_TOKENS or c.truncated or not (
+                    (c.tokens >= 0) & (c.tokens < cfg.vocab)).all():
+                fail(f"{arch}: request {c.rid}: {len(c.tokens)} tokens, "
+                     f"truncated {c.truncated}")
+
+        # (k) prefill against token-by-token decode on one prompt; the
+        # VLM's vision embeddings are zeros, as its decode cache holds them
+        prompt = torch.as_tensor(reqs[0].tokens, dtype=torch.long,
+                                 device=dev)[None]
+        batch = {"tokens": prompt}
+        if cfg.cross_attn_every:
+            batch["vision_embeds"] = torch.zeros(
+                (1, cfg.n_vision_tokens, cfg.d_model),
+                dtype=torch.bfloat16, device=dev)
+        k_bf16 = prefill_vs_decode(srv.model, srv.params, batch, dev)
+        k_row = {"bf16": k_bf16}
+        if arch in F32_PREFILL_ARCHS:
+            cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                        param_dtype="float32")
+            with no_tf32():
+                k_row["float32"] = prefill_vs_decode(
+                    build_model(cfg32), tree_cast(srv.params, torch.float32),
+                    batch, dev)
+            gated, limit = "float32", F32_PREFILL_REL_TOL
+        else:
+            gated, limit = "bf16", BF16_REL_TOL
+        for name, r in k_row.items():
+            print(f"check (k) {arch}, {name}: prefill vs {prompt.shape[1]} "
+                  f"decode steps: max abs diff {r['diff']:.5f}, largest "
+                  f"logit {r['scale']:.4f}, ratio {r['ratio']:.5f} ("
+                  + (f"limit {limit}" if name == gated else "not gated")
+                  + f"); same argmax {r['same_top']}, top-2 gap "
+                  f"{r['gap']:.5f}")
+        r = k_row[gated]
+        if not (r["finite"] and r["ratio"] <= limit
+                and (r["same_top"] or r["gap"] <= 2 * r["diff"])):
+            fail(f"(k) {arch}: prefill and token-by-token decode disagree")
+
+        # one decode step at B = 8
+        cache = srv.model.init_cache(8, FAMILY_MAX_SEQ, device=dev)
+        tok = torch.zeros((8, 1), dtype=torch.long, device=dev)
+
+        def step():
+            with torch.inference_mode():
+                srv.model.decode_step(srv.params, cache, tok,
+                                      FAMILY_STEP_POS)
+        step()
+        step_ms = cuda_ms(step, 5)
+        moved = decode_step_bytes(cfg, srv.params, cache, 8, FAMILY_STEP_POS)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        ops, kernels, dev_ms, n_launch = top_device_ops(step, n=5)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"{arch} decode step ({card}), B = 8, pos {FAMILY_STEP_POS}: "
+              f"{step_ms:.4f} ms (CUDA events, 5 steps); {n_launch} kernel "
+              f"launches, device time {dev_ms:.4f} ms (busy "
+              f"{dev_ms / step_ms:.3f}); bound {bound:.4f} ms by bytes "
+              f"({moved} bytes at 3.35 TB/s); peak memory {peak} bytes "
+              "since the weights were drawn")
+        for name, ms, n in ops:
+            print(f"  op {name}: {ms:.4f} ms device, {n} calls")
+        del cache, srv
+        torch.cuda.empty_cache()
+
+        # (l) the reduced float32 copy: card against CPU
+        cfg_r = dataclasses.replace(get_config(arch).reduced(),
+                                    dtype="float32", param_dtype="float32")
+        with no_tf32(), torch.inference_mode():
+            gpu = LMServer(cfg_r, device=dev, max_seq=32, seed=0)
+            cpu = LMServer(cfg_r, gpu._params_on(torch.device("cpu")),
+                           device="cpu", max_seq=32)
+            inp = make_inputs(cfg_r, 2, 16, np.random.default_rng(0),
+                              device="cpu")
+            lg_cpu = cpu.model.logits(cpu.params, inp)
+            lg_gpu = gpu.model.logits(gpu.params, {
+                k: v.to(dev) for k, v in inp.items()}).cpu()
+            l_err = float((lg_gpu - lg_cpu).abs().max())
+            close = bool(torch.allclose(lg_gpu, lg_cpu, atol=FAMILY_F32_TOL,
+                                        rtol=FAMILY_F32_TOL))
+            pair = [dataclasses.replace(reqs[1], rid=0, mct_queries=[]),
+                    dataclasses.replace(reqs[2], rid=1, mct_queries=[])]
+            for r in pair:
+                r.tokens = r.tokens[:12] % cfg_r.vocab
+            same = all(np.array_equal(x.tokens, y.tokens) for x, y in zip(
+                gpu.generate_batch(pair), cpu.generate_batch(pair)))
+        print(f"check (l) {arch}: reduced float32 copy, card vs CPU: logits "
+              f"max abs diff {l_err:.3g} (atol = rtol = {FAMILY_F32_TOL}: "
+              f"{close}); greedy tokens equal {same}")
+        if not (close and same):
+            fail(f"(l) {arch}: the card and the CPU disagree")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+        served = [b for b in batches if b["kept"]]
+        rows[arch] = dict(
+            family=cfg.family, layers=cfg.n_layers, weight_bytes=p_bytes,
+            batches=len(groups), served=len(comps), dropped=len(dropped),
+            launches=launches,
+            prefill_ms=[b["prefill_ms"] for b in served],
+            decode_ms=[b["decode_ms"] for b in served],
+            decode_step_ms_b8=step_ms, decode_step_launches=n_launch,
+            decode_step_device_ms=dev_ms, decode_step_bound_ms=bound,
+            decode_step_bytes=moved, peak_bytes=peak,
+            k_ratio={n: r["ratio"] for n, r in k_row.items()},
+            l_max_abs=l_err, checks={"j": True, "k": True, "l": True})
+
+    # the encoder-only family: one full-width forward from make_inputs
+    cfg = get_config(ENCODER_ARCH)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    inp = make_inputs(cfg, ENCODER_BATCH, ENCODER_SEQ,
+                      np.random.default_rng(0), device=dev)
+    out = {}
+
+    def fwd():
+        with torch.inference_mode():
+            out["logits"] = model.logits(params, inp)
+    fwd()
+    fwd_ms = cuda_ms(fwd, 3)
+    lg = out["logits"]
+    if tuple(lg.shape) != (ENCODER_BATCH, ENCODER_SEQ, cfg.vocab) \
+            or not bool(torch.isfinite(lg.float()).all()):
+        fail(f"{ENCODER_ARCH}: logits {tuple(lg.shape)}, finite "
+             f"{bool(torch.isfinite(lg.float()).all())}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"family {ENCODER_ARCH} ({cfg.family}, encoder-only) ({card}): "
+          f"{cfg.n_layers} layers, {tree_bytes(params)} bytes of weights; "
+          f"forward at (B, S) = ({ENCODER_BATCH}, {ENCODER_SEQ}) "
+          f"{fwd_ms:.4f} ms (CUDA events, 3 calls), logits finite; peak "
+          f"memory {peak} bytes")
+    rows[ENCODER_ARCH] = dict(family=cfg.family, layers=cfg.n_layers,
+                              weight_bytes=tree_bytes(params),
+                              forward_ms=fwd_ms, peak_bytes=peak)
+    del params, out, lg, inp
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 9 took {wall:.1f} s")
+    return dict(models=rows, seconds=wall)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1207,6 +1497,10 @@ def main() -> None:
     print(f"phase 6 took {t1 - t0:.1f} s, phase 7 "
           f"{time.perf_counter() - t1:.1f} s")
     serving = phase_serving(dev, engine, queries, card)
+    families = phase_families(dev, engine, queries, card)
+    family_launches = {f"family_{a}": r["launches"]
+                       for a, r in families["models"].items()
+                       if "launches" in r}
     print(json.dumps({"deployment": deploy}))
     print(json.dumps({"route_scorer": {"card": card, **{
         k: scorer[k] for k in ("batches", "requests", "served", "dropped",
@@ -1216,18 +1510,21 @@ def main() -> None:
                                "decode_step_bound_ms", "peak_bytes",
                                "checks")}}}))
     print(json.dumps({"serving": {"card": card, **serving}}))
+    print(json.dumps({"families": {"card": card, **families}}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches + scorer["launches"] + serving["launches"],
+        "launches": launches + scorer["launches"] + serving["launches"]
+        + sum(family_launches.values()),
         "launches_by_path": {"mct_wrapper": launches,
                              "route_scorer": scorer["launches"],
                              "serving_sync": serving["launches_sync"],
                              "serving_pipelined":
                                  serving["launches_pipelined"],
                              "serving_cached": serving["launches_cached"],
-                             "serving_live": serving["launches_live"]},
+                             "serving_live": serving["launches_live"],
+                             **family_launches},
         "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "plain_packed_ms": t["plain_packed_ms"],

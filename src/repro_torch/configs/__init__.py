@@ -1,1 +1,1 @@
-"""Model configurations: ``base`` (dataclasses) and one file per ported arch."""
+"""Model configurations: ``base`` (dataclasses) and one file per arch."""

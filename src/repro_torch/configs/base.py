@@ -1,11 +1,11 @@
 """Config system: architecture and shape-cell configuration.
 
 Port of ``repro.configs.base``, kept as the port's own copy (plain
-dataclasses, no torch). An architecture with a port gets a
-``src/repro_torch/configs/<id>.py`` exporting ``CONFIG`` (full-scale)
-built on :class:`ModelConfig`. ``ModelConfig.reduced()`` derives the
-CPU-test variant of the same family (small widths / few layers / tiny
-vocab).
+dataclasses, no torch). Every assigned architecture has a
+``src/repro_torch/configs/<id>.py`` exporting ``CONFIG`` (full-scale, the
+reference's numbers) built on :class:`ModelConfig`.
+``ModelConfig.reduced()`` derives the CPU-test variant of the same family
+(small widths / few layers / tiny vocab).
 """
 from __future__ import annotations
 
@@ -220,18 +220,27 @@ class ModelConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# archs whose config file and model family the port carries so far
-PORTED_ARCHS: Tuple[str, ...] = ("llama3.2-3b",)
+ASSIGNED_ARCHS: Tuple[str, ...] = (
+    "grok-1-314b",
+    "qwen3-moe-235b-a22b",
+    "xlstm-1.3b",
+    "llama-3.2-vision-11b",
+    "hubert-xlarge",
+    "llama3.2-3b",
+    "internlm2-20b",
+    "gemma3-1b",
+    "nemotron-4-340b",
+    "hymba-1.5b",
+)
 
 
 def get_config(arch: str) -> ModelConfig:
-    """Load the full-scale config for a ported architecture id."""
+    """Load the full-scale config for an assigned architecture id."""
     import importlib
 
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet (ported: {', '.join(PORTED_ARCHS)});"
-            " the other model families are ROADMAP.md queue 1, item 9")
+    if arch not in ASSIGNED_ARCHS:
+        raise ValueError(f"unknown architecture {arch!r}; the port carries "
+                         f"{', '.join(ASSIGNED_ARCHS)}")
     mod_name = "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(mod_name)
     cfg = mod.CONFIG

@@ -1,1 +1,1 @@
-"""The route-scorer models: the dense decoder family (``registry.build_model``)."""
+"""The route-scorer models: every assigned family (``registry``)."""

@@ -1,6 +1,6 @@
 """Attention: blockwise (online-softmax) full-sequence attention with causal /
-sliding-window / bidirectional masks, GQA grouped heads, and single-token
-decode against a KV cache.
+sliding-window / bidirectional masks, GQA grouped heads, single-token
+decode against a KV cache, and the VLM's cross attention.
 
 Port of ``repro.models.attention``, grouped layout only: the ``expand`` and
 ``qblock`` layouts exist only under a sharding context (ROADMAP.md queue 1,
@@ -189,3 +189,20 @@ def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
                                   window=window)
     out = out.reshape(B, 1, n_heads * head_dim)
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+def cross_attn_forward(params, x: torch.Tensor, kv_src: torch.Tensor, *,
+                       n_heads: int, n_kv_heads: int, head_dim: int
+                       ) -> torch.Tensor:
+    """Cross attention: queries from x (B, S, D), keys and values from
+    kv_src (B, T, D), no mask and no RoPE. Returns (B, S, D)."""
+    B, S, _ = x.shape
+    q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
+                     head_dim)
+    k = _split_kv(kv_src @ params["wk"].to(kv_src.dtype), n_kv_heads,
+                  head_dim)
+    v = _split_kv(kv_src @ params["wv"].to(kv_src.dtype), n_kv_heads,
+                  head_dim)
+    out = blockwise_attention(q, k, v, causal=False, window=0)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return out @ params["wo"].to(x.dtype)

@@ -1,10 +1,11 @@
-"""Single-token decode steps, prefill and KV-cache construction.
+"""Single-token decode steps, prefill and cache construction for all
+families.
 
-Port of ``repro.models.decode`` for the dense family. ``decode_step`` writes
-the new token's keys and values into the cache in place and returns it, so
-callers keep one cache per batch. ``cache_struct`` describes the cache with
-meta tensors (shape and dtype, no storage), the analog of the reference's
-ShapeDtypeStruct tree.
+Port of ``repro.models.decode``. ``decode_step`` updates the cache in place
+(the new token's keys and values written at ``pos``, recurrent states
+overwritten) and returns it, so callers keep one cache per batch.
+``cache_struct`` describes the cache with meta tensors (shape and dtype, no
+storage), the analog of the reference's ShapeDtypeStruct tree.
 """
 from __future__ import annotations
 
@@ -14,29 +15,82 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import dtype_of, norm_apply
 from repro_torch.models.transformer import (_norm_kind, _unembed, apply_block,
-                                            attn_runs, forward)
+                                            attn_runs, forward,
+                                            vlm_segments, xlstm_segments)
 
 
 def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
                  ) -> Dict[str, Any]:
-    """Meta-tensor tree of the decode cache: one {"k", "v"} of shape
-    (n, B, S, K, hd) in ``cfg.dtype`` per run of ``attn_runs``."""
+    """Meta-tensor tree of the decode cache, the reference's layout:
+
+    - ssm: mLSTM states "m_c", "m_n", "m_m" (n_seg, per - 1, B, H, ...) and
+      sLSTM states "s_c", "s_n", "s_m", "s_h" (n_seg, B, H, dh), float32;
+    - vlm: "k", "v" (n_seg, inner, B, S, K, hd) and the vision keys and
+      values "xk", "xv" (n_seg, B, n_vision_tokens, K, hd);
+    - otherwise {"runs": [...]}, one {"k", "v"} of (n, B, S, K, hd) per run
+      of ``attn_runs``, with "mamba_conv" (n, B, W - 1, di) and "mamba_h"
+      (n, B, di, N), float32, for hybrid runs.
+    """
     dt = dtype_of(cfg.dtype)
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"runs": [{name: torch.empty((n,) + shape, dtype=dt,
-                                        device="meta")
-                      for name in ("k", "v")}
-                     for (n, _, _) in attn_runs(cfg)]}
+    f32 = torch.float32
+    B, S, K, hd = batch, seq_len, cfg.n_kv_heads, cfg.head_dim
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.family == "ssm":
+        n_seg, per = xlstm_segments(cfg)
+        H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        return {
+            "m_c": sds((n_seg, per - 1, B, H, dh, dh), f32),
+            "m_n": sds((n_seg, per - 1, B, H, dh), f32),
+            "m_m": sds((n_seg, per - 1, B, H), f32),
+            "s_c": sds((n_seg, B, H, dh), f32),
+            "s_n": sds((n_seg, B, H, dh), f32),
+            "s_m": sds((n_seg, B, H, dh), f32),
+            "s_h": sds((n_seg, B, H, dh), f32),
+        }
+    if cfg.cross_attn_every:
+        n_seg, inner = vlm_segments(cfg), cfg.cross_attn_every
+        return {
+            "k": sds((n_seg, inner, B, S, K, hd), dt),
+            "v": sds((n_seg, inner, B, S, K, hd), dt),
+            "xk": sds((n_seg, B, cfg.n_vision_tokens, K, hd), dt),
+            "xv": sds((n_seg, B, cfg.n_vision_tokens, K, hd), dt),
+        }
+    runs = []
+    for (n, _, _) in attn_runs(cfg):
+        c = {"k": sds((n, B, S, K, hd), dt), "v": sds((n, B, S, K, hd), dt)}
+        if cfg.parallel_ssm:
+            di = cfg.ssm.d_inner_mult * cfg.d_model
+            W, N = cfg.ssm.conv_width, cfg.ssm.state_dim
+            c["mamba_conv"] = sds((n, B, W - 1, di), f32)
+            c["mamba_h"] = sds((n, B, di, N), f32)
+        runs.append(c)
+    return {"runs": runs}
+
+
+def _zeros_like_meta(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_meta(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like_meta(v, dev) for v in tree]
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                device="cuda") -> Dict[str, Any]:
+    """A zero cache on ``device``; the xLSTM stabilisers start at -1e30."""
     dev = resolve_device(device)
-    st = cache_struct(cfg, batch, seq_len)
-    return {"runs": [{name: torch.zeros(t.shape, dtype=t.dtype, device=dev)
-                      for name, t in run.items()} for run in st["runs"]]}
+    z = _zeros_like_meta(cache_struct(cfg, batch, seq_len), dev)
+    if cfg.family == "ssm":
+        z["m_m"] -= 1e30
+        z["s_m"] -= 1e30
+    return z
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int,
@@ -46,19 +100,70 @@ def decode_step(params, cache, token: torch.Tensor, pos: int,
     Returns (logits (B, 1, V), cache), the cache updated in place.
     """
     x = params["embed"][token].to(dtype_of(cfg.dtype))
-    for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
-                                        attn_runs(cfg)):
-        for i, blk in enumerate(run_p):
-            x, _ = apply_block(blk, x, cfg, window=w, theta=th,
-                               mode="decode", pos=pos,
-                               cache={"k": run_c["k"][i],
-                                      "v": run_c["v"][i]})
+    if cfg.family == "ssm":
+        x = _xlstm_decode(params, cache, x, cfg)
+    elif cfg.cross_attn_every:
+        x = _vlm_decode(params, cache, x, pos, cfg)
+    else:
+        for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
+                                            attn_runs(cfg)):
+            for i, blk in enumerate(run_p):
+                x, _ = apply_block(blk, x, cfg, window=w, theta=th,
+                                   mode="decode", pos=pos,
+                                   cache={k: t[i] for k, t in run_c.items()})
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
     return _unembed(params, cfg, x), cache
 
 
+def _vlm_decode(params, cache, x, pos, cfg):
+    for s, (blks, cross) in enumerate(zip(params["blocks"], params["cross"])):
+        for i, blk in enumerate(blks):
+            x, _ = apply_block(blk, x, cfg, window=0, theta=cfg.rope_theta,
+                               mode="decode", pos=pos,
+                               cache={"k": cache["k"][s, i],
+                                      "v": cache["v"][s, i]})
+        h = norm_apply(cross["norm"], x, "rms", cfg.norm_eps)
+        q = h @ cross["attn"]["wq"].to(h.dtype)
+        B = q.shape[0]
+        q = q.reshape(B, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.head_dim)
+        o = attn.attention_scores_decode(q, cache["xk"][s], cache["xv"][s],
+                                         pos=cfg.n_vision_tokens)
+        o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+        o = o @ cross["attn"]["wo"].to(h.dtype)
+        x = x + torch.tanh(cross["gate"]).to(x.dtype) * o
+    return x
+
+
+def _xlstm_decode(params, cache, x, cfg):
+    H = cfg.n_heads
+    for s, (mblks, sblk) in enumerate(zip(params["mblocks"],
+                                          params["sblocks"])):
+        for i, blk in enumerate(mblks):
+            st = xlstm_mod.MLSTMState(c=cache["m_c"][s, i],
+                                      n=cache["m_n"][s, i],
+                                      m=cache["m_m"][s, i])
+            h = norm_apply(blk["norm"], x, "rms", cfg.norm_eps)
+            y, st = xlstm_mod.mlstm_step(blk["m"], h, st, n_heads=H)
+            x = x + y
+            for name, t in zip(("m_c", "m_n", "m_m"), st):
+                cache[name][s, i].copy_(t)
+        st = xlstm_mod.SLSTMState(c=cache["s_c"][s], n=cache["s_n"][s],
+                                  m=cache["s_m"][s], h=cache["s_h"][s])
+        h = norm_apply(sblk["norm"], x, "rms", cfg.norm_eps)
+        y, st = xlstm_mod.slstm_step(sblk["s"], h, st, n_heads=H)
+        x = x + y
+        for name, t in zip(("s_c", "s_n", "s_m", "s_h"), st):
+            cache[name][s].copy_(t)
+    return x
+
+
 def prefill(params, batch, cfg: ModelConfig):
     """Full-sequence prefill. Returns (last-token logits (B, 1, V), the
-    per-run caches of the prompt)."""
+    prompt's cache as ``forward`` collects it), or (logits, None) for an
+    encoder-only arch."""
     h, caches = forward(params, batch, cfg, mode="prefill")
-    return _unembed(params, cfg, h[:, -1:]), caches
+    logits = _unembed(params, cfg, h[:, -1:])
+    if cfg.encoder_only:
+        return logits, None
+    return logits, caches

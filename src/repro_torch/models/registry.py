@@ -1,12 +1,14 @@
-"""Model registry: the public entry point for building a ported arch.
+"""Model registry: the public entry point for building any assigned arch.
 
-Port of ``repro.models.registry``. There is no sharding context: the port's
-sharding is ROADMAP.md queue 1, item 11."""
+Port of ``repro.models.registry``. There is no sharding context (the port's
+sharding is ROADMAP.md queue 1, item 11) and no training loss yet (item
+10)."""
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
@@ -41,10 +43,9 @@ def _init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
 
 
 def build_model(cfg_or_arch) -> Model:
-    """Build a Model for a ModelConfig or a ported architecture id."""
+    """Build a Model for a ModelConfig or an assigned architecture id."""
     cfg = (cfg_or_arch if isinstance(cfg_or_arch, ModelConfig)
            else get_config(cfg_or_arch))
-    tf_mod.check_supported(cfg)
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg),
@@ -54,3 +55,36 @@ def build_model(cfg_or_arch) -> Model:
         cache_struct=functools.partial(decode_mod.cache_struct, cfg),
         init_cache=functools.partial(decode_mod.init_cache, cfg),
     )
+
+
+def make_inputs(cfg: ModelConfig, batch: int, seq_len: int, rng=None, *,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """A random prefill batch drawn from the numpy generator ``rng``
+    (``default_rng(0)`` when None) in the reference's order, so one seed
+    gives both packages the same arrays; tensors on ``device``.
+
+    Token ids and labels are int64; embeddings (the audio and vision
+    frontends are stubs: ``embeds``, ``vision_embeds``) are bf16 for a
+    bf16 config, float32 otherwise.
+    """
+    dev = resolve_device(device)
+    r = np.random.default_rng(0) if rng is None else rng
+    emb_dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def ints(shape):
+        return torch.as_tensor(r.integers(0, cfg.vocab, shape),
+                               dtype=torch.long).to(dev)
+
+    def normal(shape):
+        return torch.as_tensor(r.standard_normal(shape)).to(dev, emb_dt)
+
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.embedding_inputs:
+        out["embeds"] = normal((batch, seq_len, cfg.d_model))
+    else:
+        out["tokens"] = ints((batch, seq_len))
+    out["labels"] = ints((batch, seq_len))
+    if cfg.cross_attn_every:
+        out["vision_embeds"] = normal((batch, cfg.n_vision_tokens,
+                                       cfg.d_model))
+    return out

@@ -1,13 +1,21 @@
-"""Dense transformer: block init / apply, parameter init, forward, logits.
+"""Unified model: dense / MoE / SSM (xLSTM) / hybrid (hymba) / VLM / audio.
 
-Port of ``repro.models.transformer`` for the dense family. The reference
-stacks each run of layers with equal (window, rope_theta) along a leading
-axis and scans over it; the port keeps the runs (``attn_runs``) and holds
-each run as a list of per-layer parameter dicts, applied in a Python loop.
+Port of ``repro.models.transformer``. The reference stacks layers along
+leading axes and scans over them; the port holds the same stacks as nested
+lists of per-layer parameter dicts, in layer order, applied in Python loops:
 
-The other families (MoE, SSM / xLSTM, hybrid, VLM cross-attention,
-embedding inputs) are ROADMAP.md queue 1, item 9; the training loss and
-rematerialisation wait for the training slice (item 10).
+- uniform attention archs (dense, MoE, hybrid, audio): ``blocks`` is one
+  list per run of equal (window, rope_theta) (``attn_runs``), each a list
+  of that run's layers;
+- vlm: ``blocks`` is one list per segment of ``cross_attn_every``
+  self-attention layers, and ``cross`` one cross-attention block per
+  segment, applied after the segment's layers;
+- ssm (xLSTM): ``mblocks`` is one list per segment of ``slstm_every - 1``
+  mLSTM blocks, and ``sblocks`` one sLSTM block per segment, after them.
+
+Without a sharding context the MoE layers run the reference's unsharded
+path, ``moe_ref``. The training loss and rematerialisation wait for the
+training slice (ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -18,21 +26,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (dtype_of, embed_init, norm_apply,
                                        norm_init)
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not carry yet."""
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None
-            or cfg.parallel_ssm or cfg.slstm_every or cfg.cross_attn_every
-            or cfg.embedding_inputs or cfg.encoder_only):
-        raise NotImplementedError(
-            f"{cfg.arch} ({cfg.family}) is not ported yet: the port carries "
-            "the dense decoder family; the others are ROADMAP.md queue 1, "
-            "item 9")
 
 
 def _norm_kind(cfg: ModelConfig) -> str:
@@ -45,15 +45,23 @@ def _norm_kind(cfg: ModelConfig) -> str:
 
 
 def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """One transformer block (self-attn + ffn) on the generator's device."""
+    """One transformer block (self-attn [+ssm] + ffn/moe) on the
+    generator's device."""
     dt = dtype_of(cfg.param_dtype)
     nk = _norm_kind(cfg)
     dev = generator.device
     p = {"norm1": norm_init(cfg.d_model, nk, dt, dev),
          "attn": attn.init_attn(generator, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.head_dim, dt),
-         "norm2": norm_init(cfg.d_model, nk, dt, dev)}
-    if cfg.d_ff:
+                                cfg.n_kv_heads, cfg.head_dim, dt)}
+    if cfg.parallel_ssm:
+        p["mamba"] = ssm_mod.init_mamba(generator, cfg.d_model, cfg.ssm, dt)
+        p["norm_attn_o"] = norm_init(cfg.d_model, nk, dt, dev)
+        p["norm_ssm_o"] = norm_init(cfg.d_model, nk, dt, dev)
+    p["norm2"] = norm_init(cfg.d_model, nk, dt, dev)
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(generator, cfg.d_model, cfg.moe,
+                                    cfg.act, dt)
+    elif cfg.d_ff:
         p["ffn"] = ffn_mod.init_ffn(generator, cfg.d_model, cfg.d_ff,
                                     cfg.act, dt)
     return p
@@ -80,32 +88,98 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
                 theta, positions=None, mode: str = "train",
                 cache: Optional[dict] = None, pos: Optional[int] = None):
     """One block. mode: train | prefill (full sequence) or decode (one
-    token, writing the cache in place at ``pos``).
+    token at ``pos``, the cache entry updated in place: keys and values
+    written at ``pos``, the Mamba state overwritten).
 
     Returns (x, cache entry) where the entry is None in train mode.
     """
     nk, eps = _norm_kind(cfg), cfg.norm_eps
     h = norm_apply(p["norm1"], x, nk, eps)
-    new_cache = None
+    new_cache: Dict[str, torch.Tensor] = {}
     if mode in ("train", "prefill"):
         a_out, (k, v) = attn.attn_forward(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=theta, positions=positions,
             causal=not cfg.encoder_only, window=window)
         if mode == "prefill":
-            new_cache = {"k": k, "v": v}
+            new_cache["k"], new_cache["v"] = k, v
     else:
         a_out, ck, cv = attn.attn_decode(
             p["attn"], h, cache["k"], cache["v"], pos=pos,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=theta, window=window)
-        new_cache = {"k": ck, "v": cv}
+        new_cache["k"], new_cache["v"] = ck, cv
+
+    if cfg.parallel_ssm:
+        if mode == "decode":
+            st = ssm_mod.MambaState(conv=cache["mamba_conv"],
+                                    h=cache["mamba_h"])
+            s_out, st = ssm_mod.mamba_step(p["mamba"], h, st, cfg=cfg.ssm)
+            cache["mamba_conv"].copy_(st.conv)
+            cache["mamba_h"].copy_(st.h)
+            new_cache["mamba_conv"] = cache["mamba_conv"]
+            new_cache["mamba_h"] = cache["mamba_h"]
+        elif mode == "prefill":
+            s_out, st = ssm_mod_forward_with_state(p["mamba"], h, cfg)
+            new_cache["mamba_conv"], new_cache["mamba_h"] = st.conv, st.h
+        else:
+            s_out = ssm_mod.mamba_forward(p["mamba"], h, cfg=cfg.ssm)
+        a_out = 0.5 * (norm_apply(p["norm_attn_o"], a_out, nk, eps)
+                       + norm_apply(p["norm_ssm_o"], s_out, nk, eps))
     x = x + a_out
-    if cfg.d_ff:
+
+    if cfg.moe is not None:
+        x = x + moe_mod.moe_ref(p["moe"], norm_apply(p["norm2"], x, nk, eps),
+                                cfg=cfg.moe, act=cfg.act)
+    elif cfg.d_ff:
         x = x + ffn_mod.ffn_forward(p["ffn"],
                                     norm_apply(p["norm2"], x, nk, eps),
                                     cfg.act)
-    return x, new_cache
+    return x, (new_cache or None)
+
+
+def ssm_mod_forward_with_state(params, x: torch.Tensor, cfg: ModelConfig):
+    """mamba_forward and the exact final state (for prefill)."""
+    return (ssm_mod.mamba_forward(params, x, cfg=cfg.ssm),
+            ssm_mod.mamba_prefill_state(params, x, cfg=cfg.ssm))
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+def init_xlstm_mblock(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = dtype_of(cfg.param_dtype)
+    return {"norm": norm_init(cfg.d_model, "rms", dt, generator.device),
+            "m": xlstm_mod.init_mlstm(generator, cfg.d_model, cfg.n_heads,
+                                      dt)}
+
+
+def init_xlstm_sblock(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dt = dtype_of(cfg.param_dtype)
+    return {"norm": norm_init(cfg.d_model, "rms", dt, generator.device),
+            "s": xlstm_mod.init_slstm(generator, cfg.d_model, cfg.n_heads,
+                                      dt)}
+
+
+def xlstm_segments(cfg: ModelConfig):
+    """(n_seg, per): segments of per - 1 mLSTM blocks and one sLSTM."""
+    per = cfg.slstm_every or (cfg.n_layers + 1)
+    n_seg, rem = divmod(cfg.n_layers, per)
+    if rem:
+        raise ValueError(f"{cfg.arch}: {cfg.n_layers} layers do not divide "
+                         f"into segments of {per}")
+    return n_seg, per
+
+
+def vlm_segments(cfg: ModelConfig) -> int:
+    """Segments of ``cross_attn_every`` self-attention layers."""
+    n_seg, rem = divmod(cfg.n_layers, cfg.cross_attn_every)
+    if rem:
+        raise ValueError(f"{cfg.arch}: {cfg.n_layers} layers do not divide "
+                         f"into segments of {cfg.cross_attn_every}")
+    return n_seg
 
 
 # ---------------------------------------------------------------------------
@@ -115,19 +189,45 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Parameters on the generator's device, one tensor at a time (each
-    drawn in float32, then cast to ``cfg.param_dtype``)."""
+    drawn in float32, then cast to ``cfg.param_dtype``; the leaves the
+    reference keeps in float32 stay float32)."""
     dt = dtype_of(cfg.param_dtype)
+    dev = generator.device
     p: Params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, dt)}
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
-    p["norm_f"] = norm_init(cfg.d_model, _norm_kind(cfg), dt,
-                            generator.device)
+    p["norm_f"] = norm_init(cfg.d_model, _norm_kind(cfg), dt, dev)
+
+    if cfg.family == "ssm":
+        n_seg, per = xlstm_segments(cfg)
+        p["mblocks"] = [[init_xlstm_mblock(generator, cfg)
+                         for _ in range(per - 1)] for _ in range(n_seg)]
+        p["sblocks"] = [init_xlstm_sblock(generator, cfg)
+                        for _ in range(n_seg)]
+        return p
+
+    if cfg.cross_attn_every:
+        n_seg = vlm_segments(cfg)
+        p["blocks"] = [[init_block(generator, cfg)
+                        for _ in range(cfg.cross_attn_every)]
+                       for _ in range(n_seg)]
+        p["cross"] = [{"norm": norm_init(cfg.d_model, "rms", dt, dev),
+                       "attn": attn.init_attn(generator, cfg.d_model,
+                                              cfg.n_heads, cfg.n_kv_heads,
+                                              cfg.head_dim, dt),
+                       "gate": torch.zeros((1,), dtype=torch.float32,
+                                           device=dev)}
+                      for _ in range(n_seg)]
+        return p
+
     p["blocks"] = [[init_block(generator, cfg) for _ in range(n)]
                    for (n, _, _) in attn_runs(cfg)]
     return p
 
 
 def _embed_in(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.embedding_inputs:
+        return batch["embeds"]
     return params["embed"][batch["tokens"]].to(dtype_of(cfg.dtype))
 
 
@@ -137,27 +237,75 @@ def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
     return x @ w.to(x.dtype).T
 
 
+def _stack_caches(caches: List[dict]) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
 def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
     """Full-sequence forward. Returns (h_final, aux): the pre-unembed hidden
-    state, and in prefill mode one {"k", "v"} cache per run, each stacked
-    to (n, B, S, K, hd)."""
+    state, and in prefill mode the prompt's cache (None otherwise):
+
+    - uniform archs: one dict per run, each leaf stacked to (n, ...): "k",
+      "v" (B, S, K, hd) and, for hybrid runs, "mamba_conv" and "mamba_h";
+    - vlm: {"k", "v"} stacked to (n_seg, inner, B, S, K, hd);
+    - ssm: None (decoding rebuilds the recurrent state step by step).
+    """
     x = _embed_in(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     collect = mode == "prefill"
-    aux = []
-    for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
-        ks, vs = [], []
-        for blk in run_p:
-            x, c = apply_block(blk, x, cfg, window=w, theta=th,
-                               positions=positions,
-                               mode="prefill" if collect else "train")
+    blk_mode = "prefill" if collect else "train"
+
+    if cfg.family == "ssm":
+        x = _xlstm_stack(params, x, cfg)
+        aux = None
+    elif cfg.cross_attn_every:
+        x, aux = _vlm_stack(params, x, batch["vision_embeds"], cfg,
+                            positions, blk_mode)
+    else:
+        aux = []
+        for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
+            caches = []
+            for blk in run_p:
+                x, c = apply_block(blk, x, cfg, window=w, theta=th,
+                                   positions=positions, mode=blk_mode)
+                caches.append(c)
             if collect:
-                ks.append(c["k"])
-                vs.append(c["v"])
-        if collect:
-            aux.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+                aux.append(_stack_caches(caches))
+        if not collect:
+            aux = None
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
-    return x, (aux if collect else None)
+    return x, aux
+
+
+def _vlm_stack(params, x, vis, cfg, positions, blk_mode):
+    caches = []
+    for blks, cross in zip(params["blocks"], params["cross"]):
+        seg = []
+        for blk in blks:
+            x, c = apply_block(blk, x, cfg, window=0, theta=cfg.rope_theta,
+                               positions=positions, mode=blk_mode)
+            seg.append(c)
+        h = norm_apply(cross["norm"], x, "rms", cfg.norm_eps)
+        c_out = attn.cross_attn_forward(
+            cross["attn"], h, vis, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
+        x = x + torch.tanh(cross["gate"]).to(x.dtype) * c_out
+        if blk_mode == "prefill":
+            caches.append(_stack_caches(seg))
+    return x, (_stack_caches(caches) if caches else None)
+
+
+def _xlstm_stack(params, x, cfg):
+    chunk = cfg.ssm.chunk if cfg.ssm else 128
+    for mblks, sblk in zip(params["mblocks"], params["sblocks"]):
+        for blk in mblks:
+            x = x + xlstm_mod.mlstm_forward(
+                blk["m"], norm_apply(blk["norm"], x, "rms", cfg.norm_eps),
+                n_heads=cfg.n_heads, chunk=chunk)
+        x = x + xlstm_mod.slstm_forward(
+            sblk["s"], norm_apply(sblk["norm"], x, "rms", cfg.norm_eps),
+            n_heads=cfg.n_heads)
+    return x
 
 
 def logits_fn(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:

@@ -74,9 +74,12 @@ def form_batch_groups(requests: Sequence[Request], *, target_batch: int = 8,
 
 
 class LMServer:
-    """Batched prefill + decode-loop serving for a ported architecture.
+    """Batched prefill + decode-loop serving for any decoder architecture of
+    the registry.
 
-    ``params=None`` draws the parameters on ``device`` from a
+    An encoder-only arch (``hubert-xlarge``) raises at construction: it has
+    no decode step, and the reference's server would run its bidirectional
+    layers as causal decode steps. ``params=None`` draws the parameters on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, one tensor at a time.
     ``rule_filter`` is an optional ``ErbiumEngine`` (on its own device).
     """
@@ -84,6 +87,9 @@ class LMServer:
     def __init__(self, cfg: ModelConfig, params=None, *, device="cuda",
                  max_seq: int = 256, seed: int = 0, rule_filter=None,
                  pad_batches: bool = True):
+        if cfg.encoder_only:
+            raise ValueError(
+                f"{cfg.arch} is encoder-only: it has no decode step to serve")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)

@@ -1,6 +1,7 @@
 """The CUDA rule-match kernel against its plain PyTorch versions on the card,
 the route scorer (``LMServer``, its MCT filter on the kernel) on the card
-against the same server on the CPU, and the serving stack (``serve()`` with
+against the same server on the CPU, one reduced float32 model of every
+family on the card against the CPU, and the serving stack (``serve()`` with
 two replicas on one card) against that server on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda_device`` fixture, which skips
@@ -24,7 +25,7 @@ from repro_torch.core.rules import generate_queries, generate_rules
 from repro_torch.kernels import ops
 from repro_torch.kernels import rule_match as rm
 from repro_torch.kernels.ref import rule_match_packed_ref, rule_match_ref
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, make_inputs
 from repro_torch.serve import (LMServer, Request, ServeConfig, build,
                                form_batch_groups)
 
@@ -323,3 +324,44 @@ def test_serve_two_replicas_on_card_equal_cpu(cuda_device, no_tf32,
         np.testing.assert_array_equal(sync[rid].tokens, w.tokens)
         np.testing.assert_array_equal(pipe[rid].tokens, w.tokens)
         assert pipe[rid].batch_size == sync[rid].batch_size == w.batch_size
+
+
+# one arch of each family: dense, moe, ssm (xLSTM), hybrid, vlm, audio
+FAMILY_ARCHS = ["gemma3-1b", "qwen3-moe-235b-a22b", "xlstm-1.3b",
+                "hymba-1.5b", "llama-3.2-vision-11b", "hubert-xlarge"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_card_equals_cpu(cuda_device, no_tf32, arch):
+    """The reduced float32 model on the card against the CPU: full logits
+    within 1e-4 and, for a decoder, equal ``LMServer`` tokens."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = make_inputs(cfg, 2, 12, np.random.default_rng(0), device="cpu")
+    with torch.inference_mode():
+        want = model.logits(params, batch)
+        got = model.logits(_tree_to(params, cuda_device),
+                           {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    if cfg.encoder_only:
+        return
+    reqs = [Request(rid=0, tokens=np.asarray([3, 5, 7, 11, 2], np.int32),
+                    max_new_tokens=5),
+            Request(rid=1, tokens=np.asarray([9, 4], np.int32),
+                    max_new_tokens=3)]
+    want = LMServer(cfg, params, device="cpu", max_seq=16).generate_batch(reqs)
+    got = LMServer(cfg, params, device=cuda_device,
+                   max_seq=16).generate_batch(reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)

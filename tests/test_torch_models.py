@@ -85,8 +85,11 @@ def test_config_is_the_reference_config():
 
 
 def test_unported_arch_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_config("gemma3-1b")
+    """Every assigned arch is ported; an unknown id is refused with the
+    list of those the port carries."""
+    assert get_config("gemma3-1b").arch == "gemma3-1b"
+    with pytest.raises(ValueError, match="llama3.2-3b"):
+        get_config("llama-9")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
