@@ -52,9 +52,22 @@ Phases, in order; any failure exits non-zero:
      against token-by-token decode, (l) the reduced float32 copy, card
      against CPU; one decode step at B = 8 timed, profiled and held against
      its bound by bytes; then one full-width forward of the encoder-only
-     hubert-xlarge.
-It then prints JSON lines for phases 7, 6, 8 and 9 and the kernels and,
-last, the device line.
+     hubert-xlarge;
+ 10. training (repro_torch.train.loop.fit) on the full-width, full-depth
+     llama3.2-3b: bf16 parameters drawn on the card from seed 0, float32
+     AdamW moments updated in place, remat "dots", batches of 8 x 256 from
+     the synthetic pipeline, 6 steps; step time, tokens/s, peak memory,
+     launches and device busy share of one step (torch.profiler), the top
+     device operations, the fwd/bwd and optimizer times, and the step's
+     bound; checks (m) finite losses and grad norms, three steps on one
+     repeated batch lower the loss, (n) a reduced float32 copy trained 3
+     steps on the card and on the CPU agrees (TF32 off), (o) 2 steps, an
+     AsyncCheckpointer save and a resume for 2 more equal 4 uninterrupted
+     steps, the restored tensors equal to the saved ones bit for bit,
+     (p) one full-width step at microbatches=2 has the first loss of
+     microbatches=1 within 5e-2.
+It then prints JSON lines for phases 7, 6, 8, 9 and 10 and the kernels
+and, last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
@@ -111,6 +124,22 @@ F32_PREFILL_REL_TOL = 1e-3
 FAMILY_F32_TOL = 1e-4               # atol = rtol
 ENCODER_ARCH = "hubert-xlarge"      # encoder-only: one forward, no server
 ENCODER_BATCH, ENCODER_SEQ = 2, 256
+# phase 10: training at full width; (n) and (o) on the reduced float32 copy
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 6
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+BF16_FLOP_PER_S = 989e12            # H100 SXM data sheet, dense
+F32_FLOP_PER_S = 67e12              # float32 outside the tensor cores
+# check (n): float32, TF32 off, card against CPU over 3 steps: losses and
+# grad norms within 1e-4; parameters within 1e-5 where the CPU's first
+# gradient is at least 1e-6 in size (Adam's m / (sqrt(v) + eps) of a
+# gradient within rounding of zero is ill-conditioned), and everywhere
+# within the most 3 steps can move them, 2 * lr a step
+TRAIN_F32_TOL = 1e-4
+TRAIN_F32_PARAM_TOL = 1e-5
+TRAIN_RESUME_RTOL = 1e-4            # check (o)
+TRAIN_MB_TOL = 5e-2                 # check (p), tests/test_train_loop.py
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"
 # phase 8: the second wave's rids and logical arrivals follow the first's;
 # a filtered content stays remembered for a minute of logical time
 SERVE_WAVE_RID = 1000
@@ -1459,7 +1488,259 @@ def phase_families(dev, engine, queries, card: str):
     return dict(models=rows, seconds=wall)
 
 
+def train_step_work(cfg, params, batch: int, seq: int) -> dict:
+    """The work one train step must do, from the model's shapes: the
+    operations of forward and backward (3x the forward's; weight products
+    in bf16 on the tensor cores, the attention's two products in float32,
+    causal pairs only), and the bytes it must move (parameters, AdamW's mu
+    and nu read once and written once). The optimizer pass as coded also
+    reads the float32 grads: 24 bytes a parameter in all."""
+    n = sum(t.numel() for t in leaves(params))
+    p_bytes = tree_bytes(params)
+    D, L, T = cfg.d_model, cfg.n_layers, batch * seq
+    per_layer = D * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * D \
+        + 3 * D * cfg.d_ff
+    mm = 3 * 2 * (T * L * per_layer + batch * (seq - 1) * cfg.vocab * D)
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 2 * 2 * batch * cfg.n_heads * cfg.head_dim * pairs * L
+    ops_ms = (mm / BF16_FLOP_PER_S + attn / F32_FLOP_PER_S) * 1e3
+    state = 2 * 4 * n                               # mu, nu in float32
+    io_bytes = 2 * (p_bytes + state)
+    opt_bytes = io_bytes + 4 * n                    # + the float32 grads
+    return dict(params=n, matmul_flops=mm, attention_flops=attn,
+                ops_ms=ops_ms, io_bytes=io_bytes,
+                bytes_ms=io_bytes / HBM_BYTES_PER_S * 1e3,
+                optimizer_bytes=opt_bytes,
+                optimizer_bytes_ms=opt_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_training(dev, card: str):
+    """Training on the card through ``fit``; checks (m)-(p)."""
+    import dataclasses
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import (TrainConfig, _grads, _local_step,
+                                        batch_to_device, fit,
+                                        make_optimizer)
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    left = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     lr=TRAIN_LR, warmup=TRAIN_WARMUP, log_every=TRAIN_STEPS)
+    res = fit(cfg, tc, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    params, state = res.params, res.opt_state
+    work = train_step_work(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    step_ms = statistics.median(res.step_times[1:]) * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"training ({card}): {TRAIN_ARCH}, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, {work['params']} "
+          f"parameters ({tree_bytes(params)} bytes, {cfg.param_dtype}), "
+          f"AdamW moments {cfg.optimizer_dtype}, remat {cfg.remat}; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 4) for x in res.losses]}, grad norms "
+          f"{[round(x, 4) for x in res.grad_norms]}; step times "
+          f"{[round(t * 1e3, 2) for t in res.step_times]} ms (host clock, "
+          f"each ending in the loss's read); median after the first "
+          f"{step_ms:.2f} ms, {tok_s:.1f} tokens/s; peak memory {peak} "
+          f"bytes ({left} bytes held before the phase)")
+    if not (all(np.isfinite(res.losses)) and all(np.isfinite(res.grad_norms))
+            and len(res.losses) == TRAIN_STEPS):               # (m)
+        fail(f"(m) losses {res.losses}, grad norms {res.grad_norms}")
+
+    # (m) three steps on one repeated batch lower the loss
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, tc)
+    step = _local_step(model, opt, 1)
+    batch = batch_to_device(synth_batch(cfg, TRAIN_STEPS, TRAIN_BATCH,
+                                        TRAIN_SEQ), dev)
+    rep = []
+    for _ in range(3):
+        params, state, m = step(params, state, batch)
+        rep.append(float(m["loss"]))
+    print(f"check (m): losses and grad norms finite; three steps on one "
+          f"batch: losses {rep}")
+    if not (all(np.isfinite(rep)) and rep[-1] < rep[0]):
+        fail(f"(m) repeated batch did not lower the loss: {rep}")
+
+    # one step under the profiler; fwd/bwd and the optimizer apart
+    holder = {"state": state}
+
+    def one_step():
+        _, holder["state"], _ = step(params, holder["state"], batch)
+    ops, kernels, dev_ms, n_launch = top_device_ops(one_step)
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    leaves_ = tree_leaves(params)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, grads = _grads(model, params, leaves_, batch)
+    torch.cuda.synchronize(dev)
+    fb_ms = (time.perf_counter() - t0) * 1e3
+    flat = iter(grads)
+    g_tree = tree_map(lambda _: next(flat), params)
+    t0 = time.perf_counter()
+    _, holder["state"], _ = opt.update(g_tree, holder["state"], params)
+    torch.cuda.synchronize(dev)
+    opt_ms = (time.perf_counter() - t0) * 1e3
+
+    def opt_step():        # on the same (already clipped) grads
+        _, holder["state"], _ = opt.update(g_tree, holder["state"], params)
+    _, _, opt_dev_ms, opt_launch = top_device_ops(opt_step)
+    del grads, g_tree, flat
+    bound = max(work["ops_ms"], work["bytes_ms"])
+    phase_bound = work["ops_ms"] + work["optimizer_bytes_ms"]
+    busy = dev_ms / wall_ms
+    print(f"train step ({card}): {wall_ms:.2f} ms (host clock, synchronised)"
+          f"; under the profiler {n_launch} kernel launches, device time "
+          f"{dev_ms:.2f} ms (busy share {busy:.3f} of the step); forward + "
+          f"backward {fb_ms:.2f} ms, optimizer {opt_ms:.2f} ms (host clock, "
+          f"each synchronised); the optimizer alone under the profiler: "
+          f"{opt_launch} launches, {opt_dev_ms:.2f} ms device")
+    for name, ms, n in ops:
+        print(f"  op {name}: {ms:.4f} ms device, {n} calls")
+    for name, ms, n in kernels:
+        print(f"  kernel {name[:90]}: {ms:.4f} ms, {n} launches")
+    print(f"train step bound: {work['matmul_flops']:.4g} bf16 FLOP of "
+          f"weight products over {BF16_FLOP_PER_S:.4g} FLOP/s + "
+          f"{work['attention_flops']:.4g} float32 FLOP of attention over "
+          f"{F32_FLOP_PER_S:.4g} = {work['ops_ms']:.3f} ms; {work['io_bytes']}"
+          f" bytes (parameters, mu and nu read and written once) = "
+          f"{work['bytes_ms']:.3f} ms; bound {bound:.3f} ms by "
+          f"{'operations' if work['ops_ms'] >= work['bytes_ms'] else 'bytes'}"
+          f", {bound / step_ms:.4f} of the median step; fwd/bwd by "
+          f"operations + the optimizer's pass by bytes as coded "
+          f"({work['optimizer_bytes']} bytes, {work['optimizer_bytes_ms']:.3f}"
+          f" ms) = {phase_bound:.3f} ms, {phase_bound / step_ms:.4f} of the "
+          f"median step")
+    train_losses, train_norms = res.losses, res.grad_norms
+    first_loss = train_losses[0]
+    del params, state, holder, res, batch, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (p) one full-width step at microbatches=2 against microbatches=1
+    tc2 = dataclasses.replace(tc, steps=1, microbatches=2)
+    res2 = fit(cfg, tc2, device=dev, log=lambda s: None)
+    peak_mb2 = torch.cuda.max_memory_allocated(dev)
+    d_mb = abs(res2.losses[0] - first_loss)
+    print(f"check (p): first loss at microbatches=2 {res2.losses[0]:.6f}, "
+          f"at 1 {first_loss:.6f}, difference {d_mb:.3g} (limit "
+          f"{TRAIN_MB_TOL})")
+    if not d_mb < TRAIN_MB_TOL:
+        fail(f"(p) microbatched first loss differs by {d_mb}")
+    del res2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (n) reduced float32 copy, 3 steps, card against CPU, TF32 off
+    small = dataclasses.replace(cfg.reduced(), dtype="float32",
+                                param_dtype="float32")
+    s_tc = TrainConfig(steps=3, batch=4, seq_len=32, lr=1e-3, warmup=2,
+                       log_every=100)
+    s_model = build_model(small)
+    p_cpu = s_model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+    runs = {}
+    with no_tf32():
+        for name, p, d in (("cpu", p_cpu, torch.device("cpu")),
+                           ("gpu", p_gpu, dev)):
+            s_opt = make_optimizer(small, s_tc)
+            st = s_opt.init(p)
+            s_step = _local_step(s_model, s_opt, 1)
+            losses, norms = [], []
+            for i in range(3):
+                b = batch_to_device(synth_batch(small, i, 4, 32), d)
+                if i == 0 and name == "cpu":
+                    g0 = _grads(s_model, p, tree_leaves(p), b)[1]
+                p, st, m = s_step(p, st, b)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            runs[name] = (losses, norms, p)
+    (l_c, n_c, p_c), (l_g, n_g, p_g) = runs["cpu"], runs["gpu"]
+    lr_max = s_tc.lr
+    p_err, p_all = 0.0, 0.0
+    for a, b, g in zip(tree_leaves(p_g), tree_leaves(p_c), g0):
+        d = (a.detach().cpu() - b.detach()).abs()
+        p_all = max(p_all, float(d.max()))
+        p_err = max(p_err, float(torch.where(g.abs() >= 1e-6, d, 0).max()))
+    ok_n = (np.allclose(l_g, l_c, rtol=TRAIN_F32_TOL, atol=TRAIN_F32_TOL)
+            and np.allclose(n_g, n_c, rtol=TRAIN_F32_TOL, atol=TRAIN_F32_TOL)
+            and p_err <= TRAIN_F32_PARAM_TOL and p_all <= 2 * lr_max * 3)
+    print(f"check (n): reduced float32 copy, 3 steps, card vs CPU (TF32 "
+          f"off): losses {l_g} vs {l_c}, grad norms {n_g} vs {n_c} (atol = "
+          f"rtol = {TRAIN_F32_TOL}); parameters max abs diff {p_err:.3g} "
+          f"where |g| >= 1e-6 (limit {TRAIN_F32_PARAM_TOL}), {p_all:.3g} "
+          f"anywhere (limit {2 * lr_max * 3:.3g}): {ok_n}")
+    if not ok_n:
+        fail("(n) the card and the CPU disagree on the float32 train steps")
+
+    # (o) 2 steps + AsyncCheckpointer save + resume 2 == 4 uninterrupted
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    common = dict(batch=4, seq_len=32, lr=1e-3, warmup=2, log_every=100,
+                  schedule_steps=4, ckpt_every=100)
+    quiet = lambda s: None  # noqa: E731
+    try:
+        full = fit(small, TrainConfig(steps=4, **common), device=dev,
+                   log=quiet)
+        first = fit(small, TrainConfig(steps=2, ckpt_dir=str(TRAIN_CKPT_DIR),
+                                       **common), device=dev, log=quiet)
+        saved = {"params": first.params, "opt": first.opt_state}
+        back = store.restore(TRAIN_CKPT_DIR, 2, saved)
+        bitwise = all(a.dtype == b.dtype and torch.equal(a, b.detach())
+                      for a, b in zip(tree_leaves(back), tree_leaves(saved)))
+        second = fit(small, TrainConfig(steps=4, ckpt_dir=str(TRAIN_CKPT_DIR),
+                                        **common), device=dev, log=quiet)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    same = np.allclose(full.losses[2:], second.losses,
+                       rtol=TRAIN_RESUME_RTOL, atol=0)
+    print(f"check (o): 4 steps {full.losses}; 2 steps "
+          f"{first.losses} + resumed {second.losses} (rtol "
+          f"{TRAIN_RESUME_RTOL}: {same}); restored tensors equal to the "
+          f"saved ones bit for bit: {bitwise}")
+    if not (same and bitwise):
+        fail("(o) the resumed run differs from the uninterrupted one")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 10 took {wall:.1f} s")
+    return dict(arch=TRAIN_ARCH, layers=cfg.n_layers, params=work["params"],
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+                losses=train_losses, grad_norms=train_norms,
+                step_ms=step_ms,
+                tokens_per_s=tok_s, peak_bytes=peak,
+                peak_bytes_microbatches_2=peak_mb2,
+                launches_per_step=n_launch, device_ms_per_step=dev_ms,
+                profiled_step_ms=wall_ms, busy_share=busy,
+                fwd_bwd_ms=fb_ms, optimizer_ms=opt_ms,
+                optimizer_device_ms=opt_dev_ms,
+                optimizer_launches=opt_launch,
+                bound_ms=bound,
+                bound_by="operations" if work["ops_ms"] >= work["bytes_ms"]
+                else "bytes", bound_ratio=bound / step_ms,
+                phase_bound_ms=phase_bound,
+                phase_bound_ratio=phase_bound / step_ms,
+                top_ops=[[n, ms, c] for n, ms, c in ops[:5]],
+                repeated_batch_losses=rep, mb2_first_loss_diff=d_mb,
+                n_max_abs=p_err, seconds=wall,
+                checks={"m": True, "n": True, "o": True, "p": True})
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card: chip_smoke.py drives the port on the card only")
@@ -1498,6 +1779,8 @@ def main() -> None:
           f"{time.perf_counter() - t1:.1f} s")
     serving = phase_serving(dev, engine, queries, card)
     families = phase_families(dev, engine, queries, card)
+    training = phase_training(dev, card)
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     family_launches = {f"family_{a}": r["launches"]
                        for a, r in families["models"].items()
                        if "launches" in r}
@@ -1511,6 +1794,7 @@ def main() -> None:
                                "checks")}}}))
     print(json.dumps({"serving": {"card": card, **serving}}))
     print(json.dumps({"families": {"card": card, **families}}))
+    print(json.dumps({"training": {"card": card, **training}}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,

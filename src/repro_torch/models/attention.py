@@ -67,46 +67,45 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(d)
     dev = q.device
     q32, k32, v32 = q.float(), k.float(), v.float()
-
-    out = torch.zeros((B, n_q * block_q, K, G, d), dtype=torch.float32,
-                      device=dev)
-    m = torch.full((B, K, G, n_q * block_q), NEG_INF, dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((B, K, G, n_q * block_q), dtype=torch.float32,
-                    device=dev)
     q_ids = torch.arange(block_q, device=dev)
     k_ids = torch.arange(block_kv, device=dev)
+    pairs = _block_pairs(n_q, n_kv, block_q, block_kv, causal, window)
 
-    for qi, kj in _block_pairs(n_q, n_kv, block_q, block_kv, causal, window):
-        qs, ks = qi * block_q, kj * block_kv
+    # one query block at a time, its running max, sum and output held as
+    # new tensors (nothing written in place, so autograd can differentiate)
+    outs = []
+    for qi in range(n_q):
+        qs = qi * block_q
         qb = q32[:, qs:qs + block_q]
-        kb = k32[:, ks:ks + block_kv]
-        vb = v32[:, ks:ks + block_kv]
-        nq, nk = qb.shape[1], kb.shape[1]       # the last blocks may be short
-        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+        nq = qb.shape[1]                        # the last block may be short
+        acc = torch.zeros((B, nq, K, G, d), dtype=torch.float32, device=dev)
+        m = torch.full((B, K, G, nq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, K, G, nq), dtype=torch.float32, device=dev)
         q_pos = qs + q_ids[:nq] + q_offset
-        k_pos = ks + k_ids[:nk]
-        mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= k_pos[None, :] <= q_pos[:, None]
-        if window > 0:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
-        s = torch.where(mask, s, NEG_INF)
-
-        mb = m[..., qs:qs + nq]
-        lb = l[..., qs:qs + nq]
-        m_new = torch.maximum(mb, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(mb - m_new)
-        l[..., qs:qs + nq] = lb * corr + p.sum(dim=-1)
-        m[..., qs:qs + nq] = m_new
-        pv = torch.einsum("bkgqs,bskd->bqkgd", p, vb)
-        out[:, qs:qs + nq] = (out[:, qs:qs + nq]
-                              * corr.permute(0, 3, 1, 2)[..., None] + pv)
-
-    denom = l.permute(0, 3, 1, 2)[..., None]
-    out = out / torch.clamp(denom, min=1e-30)
-    return out[:, :Sq].to(q.dtype)
+        for kj in (kj for (i, kj) in pairs if i == qi):
+            ks = kj * block_kv
+            kb = k32[:, ks:ks + block_kv]
+            vb = v32[:, ks:ks + block_kv]
+            nk = kb.shape[1]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+            k_pos = ks + k_ids[:nk]
+            mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            m = m_new
+            pv = torch.einsum("bkgqs,bskd->bqkgd", p, vb)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        denom = l.permute(0, 3, 1, 2)[..., None]
+        outs.append(acc / torch.clamp(denom, min=1e-30))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -121,3 +121,18 @@ def act_fn(name: str):
 
 def is_gated(name: str) -> bool:
     return name in ("swiglu", "geglu")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Stable cross entropy in float32, the mean over the positions whose
+    label is not ``ignore_id``. A negative label indexes from the end, as
+    ``jnp.take_along_axis`` does; its position is masked out all the same
+    when it is ``ignore_id``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = labels.long() % logits.shape[-1]
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

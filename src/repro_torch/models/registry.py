@@ -1,8 +1,9 @@
 """Model registry: the public entry point for building any assigned arch.
 
 Port of ``repro.models.registry``. There is no sharding context (the port's
-sharding is ROADMAP.md queue 1, item 11) and no training loss yet (item
-10)."""
+sharding is ROADMAP.md queue 1, item 11). ``Model.loss(params, batch)`` is
+the training loss (``transformer.loss_fn``) that ``repro_torch.train``
+differentiates."""
 from __future__ import annotations
 
 import functools
@@ -22,6 +23,7 @@ class Model(NamedTuple):
 
     cfg: ModelConfig
     init: Callable[..., Any]
+    loss: Callable[..., torch.Tensor]
     logits: Callable[..., torch.Tensor]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
@@ -49,6 +51,7 @@ def build_model(cfg_or_arch) -> Model:
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg),
+        loss=functools.partial(tf_mod.loss_fn, cfg=cfg),
         logits=functools.partial(tf_mod.logits_fn, cfg=cfg),
         prefill=functools.partial(decode_mod.prefill, cfg=cfg),
         decode_step=functools.partial(decode_mod.decode_step, cfg=cfg),

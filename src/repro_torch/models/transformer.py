@@ -14,14 +14,25 @@ lists of per-layer parameter dicts, in layer order, applied in Python loops:
   mLSTM blocks, and ``sblocks`` one sLSTM block per segment, after them.
 
 Without a sharding context the MoE layers run the reference's unsharded
-path, ``moe_ref``. The training loss and rematerialisation wait for the
-training slice (ROADMAP.md queue 1, item 10).
+path, ``moe_ref``.
+
+Training: ``loss_fn`` is the reference's sequence-chunked cross entropy,
+each chunk's unembed under a checkpoint so that autograd keeps no chunk's
+float32 ``(B, chunk, vocab)`` logits. ``cfg.remat`` maps the reference's
+``jax.checkpoint`` policies onto ``torch.utils.checkpoint`` layer by layer
+(``_remat``), with the reference's two-level form where
+``cfg.remat_groups`` is set. Rematerialisation applies only where autograd
+records (``torch.is_grad_enabled()``); it changes no value.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -37,6 +48,36 @@ Params = Dict[str, Any]
 
 def _norm_kind(cfg: ModelConfig) -> str:
     return "ln" if cfg.family == "audio" else "rms"
+
+
+# the weight products: unbatched matrix products, as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves them
+# (batched products, ``bmm``, are recomputed)
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn: Callable, **kw) -> Callable:
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under ``cfg.remat``: "none" keeps every activation, "full"
+    recomputes the whole of ``fn`` in the backward pass, "dots" saves the
+    outputs of its weight products and recomputes the rest."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return _checkpointed(fn, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    if cfg.remat == "full":
+        return _checkpointed(fn)
+    raise ValueError(f"unknown remat {cfg.remat!r}; use none, full or dots")
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +302,7 @@ def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
     elif cfg.cross_attn_every:
         x, aux = _vlm_stack(params, x, batch["vision_embeds"], cfg,
                             positions, blk_mode)
-    else:
+    elif collect:
         aux = []
         for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
             caches = []
@@ -269,43 +310,130 @@ def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
                 x, c = apply_block(blk, x, cfg, window=w, theta=th,
                                    positions=positions, mode=blk_mode)
                 caches.append(c)
-            if collect:
-                aux.append(_stack_caches(caches))
-        if not collect:
-            aux = None
+            aux.append(_stack_caches(caches))
+    else:
+        for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
+            def body(xc, blk, _w=w, _th=th):
+                return apply_block(blk, xc, cfg, window=_w, theta=_th,
+                                   positions=positions)[0]
+            x = _run_layers(body, x, run_p, cfg)
+        aux = None
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
     return x, aux
 
 
+def _run_layers(body, x: torch.Tensor, blocks, cfg: ModelConfig,
+                grouped: bool = True) -> torch.Tensor:
+    """``body(x, blk)`` for each block in order, each under ``_remat``.
+    Where ``grouped`` and ``cfg.remat_groups`` g divides the run (and is
+    smaller), each group of n / g blocks is also checkpointed whole, so
+    that one residual a group stays saved (the reference's two-level
+    remat of ``_scan_run``)."""
+    layer = _remat(body, cfg)
+    g, n = cfg.remat_groups, len(blocks)
+    if grouped and g and n % g == 0 and n > g and torch.is_grad_enabled():
+        inner = n // g
+
+        def group(xc, *blks):
+            for blk in blks:
+                xc = layer(xc, blk)
+            return xc
+
+        outer = _checkpointed(group)
+        for i in range(0, n, inner):
+            x = outer(x, *blocks[i:i + inner])
+        return x
+    for blk in blocks:
+        x = layer(x, blk)
+    return x
+
+
 def _vlm_stack(params, x, vis, cfg, positions, blk_mode):
+    def body(xc, blk):
+        return apply_block(blk, xc, cfg, window=0, theta=cfg.rope_theta,
+                           positions=positions)[0]
+
     caches = []
     for blks, cross in zip(params["blocks"], params["cross"]):
-        seg = []
-        for blk in blks:
-            x, c = apply_block(blk, x, cfg, window=0, theta=cfg.rope_theta,
-                               positions=positions, mode=blk_mode)
-            seg.append(c)
+        if blk_mode == "train":
+            x = _run_layers(body, x, blks, cfg, grouped=False)
+        else:
+            seg = []
+            for blk in blks:
+                x, c = apply_block(blk, x, cfg, window=0,
+                                   theta=cfg.rope_theta,
+                                   positions=positions, mode=blk_mode)
+                seg.append(c)
+            caches.append(_stack_caches(seg))
         h = norm_apply(cross["norm"], x, "rms", cfg.norm_eps)
         c_out = attn.cross_attn_forward(
             cross["attn"], h, vis, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
         x = x + torch.tanh(cross["gate"]).to(x.dtype) * c_out
-        if blk_mode == "prefill":
-            caches.append(_stack_caches(seg))
     return x, (_stack_caches(caches) if caches else None)
 
 
 def _xlstm_stack(params, x, cfg):
     chunk = cfg.ssm.chunk if cfg.ssm else 128
+
+    def m_body(xc, blk):
+        return xc + xlstm_mod.mlstm_forward(
+            blk["m"], norm_apply(blk["norm"], xc, "rms", cfg.norm_eps),
+            n_heads=cfg.n_heads, chunk=chunk)
+
     for mblks, sblk in zip(params["mblocks"], params["sblocks"]):
-        for blk in mblks:
-            x = x + xlstm_mod.mlstm_forward(
-                blk["m"], norm_apply(blk["norm"], x, "rms", cfg.norm_eps),
-                n_heads=cfg.n_heads, chunk=chunk)
+        x = _run_layers(m_body, x, mblks, cfg, grouped=False)
         x = x + xlstm_mod.slstm_forward(
             sblk["s"], norm_apply(sblk["norm"], x, "rms", cfg.norm_eps),
             n_heads=cfg.n_heads)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked CE)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(w: torch.Tensor, h: torch.Tensor, lab: torch.Tensor):
+    """Summed negative log-likelihood and the count of unmasked positions
+    of one chunk: h (B, c, D) against the unembedding w (V, D); labels < 0
+    are masked."""
+    logits = (h @ w.to(h.dtype).T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+    mask = (lab >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(params: Params, batch, cfg: ModelConfig,
+            ce_chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross entropy (every position for an encoder-only arch)
+    with the unembed chunked along the sequence: ``ce_chunk`` positions at
+    a time, the last chunk padded with label -1 (masked)."""
+    h, _ = forward(params, batch, cfg, mode="train")
+    if cfg.encoder_only:
+        h_in, lab = h, batch["labels"]
+    else:
+        h_in = h[:, :-1]
+        lab = (batch["labels"] if "labels" in batch
+               else batch["tokens"])[:, 1:]
+    lab = lab.long()
+    S = h_in.shape[1]
+    ce_chunk = min(ce_chunk, S)
+    pad = (-S) % ce_chunk
+    if pad:
+        h_in = F.pad(h_in, (0, 0, 0, pad))
+        lab = F.pad(lab, (0, pad), value=-1)
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    nll = _chunk_nll
+    if torch.is_grad_enabled():
+        nll = _checkpointed(_chunk_nll)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S + pad, ce_chunk):
+        t, n = nll(w, h_in[:, c:c + ce_chunk], lab[:, c:c + ce_chunk])
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def logits_fn(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:

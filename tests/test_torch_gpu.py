@@ -365,3 +365,42 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_train_step_on_card_equals_cpu(cuda_device, no_tf32, arch):
+    """One reduced float32 train step (loss, grads, in-place AdamW) on the
+    card against the CPU from the same parameters and pipeline batch: loss
+    and grad norm within 1e-4; new parameters within 1e-5 where the CPU's
+    gradient is at least 1e-6 in size, and within 2 * lr anywhere (Adam's
+    normalised update of a gradient within rounding of zero is
+    ill-conditioned)."""
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.train.loop import (TrainConfig, _grads, _local_step,
+                                        batch_to_device, make_optimizer)
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg)
+    tc = TrainConfig(steps=1, lr=1e-3, warmup=1)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda_device)
+    b = synth_batch(cfg, 0, 4, 16)
+    g0 = _grads(model, p_cpu, tree_leaves(p_cpu),
+                batch_to_device(b, "cpu"))[1]
+    out = {}
+    for name, p, d in (("cpu", p_cpu, torch.device("cpu")),
+                       ("gpu", p_gpu, cuda_device)):
+        opt = make_optimizer(cfg, tc)
+        p, _, m = _local_step(model, opt, 1)(p, opt.init(p),
+                                             batch_to_device(b, d))
+        out[name] = (m["loss"].item(), m["grad_norm"].item(), p)
+    (l_c, n_c, p_c), (l_g, n_g, p_g) = out["cpu"], out["gpu"]
+    np.testing.assert_allclose(l_g, l_c, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(n_g, n_c, atol=1e-4, rtol=1e-4)
+    for a, w, g in zip(tree_leaves(p_g), tree_leaves(p_c), g0):
+        d = (a.detach().cpu() - w.detach()).abs()
+        assert float(torch.where(g.abs() >= 1e-6, d, 0).max()) <= 1e-5
+        assert float(d.max()) <= 2 * tc.lr
