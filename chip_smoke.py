@@ -65,8 +65,26 @@ Phases, in order; any failure exits non-zero:
      AsyncCheckpointer save and a resume for 2 more equal 4 uninterrupted
      steps, the restored tensors equal to the saved ones bit for bit,
      (p) one full-width step at microbatches=2 has the first loss of
-     microbatches=1 within 5e-2.
-It then prints JSON lines for phases 7, 6, 8, 9 and 10 and the kernels
+     microbatches=1 within 5e-2;
+ 11. sharding and launch (repro_torch.sharding, repro_torch.launch) on an
+     NCCL group of one rank and a (1, 1) ("data", "model") mesh of the
+     card, while the dry run runs in two processes of its own (the fake
+     backend cannot share a process with NCCL): (q) fit(ctx=make_ctx(...))
+     on phase 10's full-width llama3.2-3b, settings and batches, losses
+     equal to phase 10's within 5e-2, step time, tokens/s, peak memory,
+     launches and busy share of one step beside phase 10's, and one step at
+     microbatches=2 through build_train_step; (r) shard_prefill and
+     shard_decode on llama3.2-3b at B = 8, pos 40 against the unsharded
+     prefill and decode_step (within phase 6's 5% of the largest logit),
+     step time and launches beside phase 6's, and one qwen3-moe-235b-a22b
+     decode step (phase 9's 4 layers) through moe_forward under the
+     context, weight-stationary off and on, equal to each other; (s)
+     build(ServeConfig(mesh=...)) at full width behind phase 4's engine:
+     phase 6's requests give the sync baseline's tokens and drops through
+     the mesh's replica; (t) the dry run of llama3.2-3b train_4k on 16x16
+     and qwen3-moe-235b-a22b decode_32k on 2x16x16: each record ok, its
+     per-device parameter bytes, FLOPs, collectives and roofline terms.
+It then prints JSON lines for phases 7, 6, 8, 9, 10 and 11 and the kernels
 and, last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
@@ -140,6 +158,13 @@ TRAIN_F32_PARAM_TOL = 1e-5
 TRAIN_RESUME_RTOL = 1e-4            # check (o)
 TRAIN_MB_TOL = 5e-2                 # check (p), tests/test_train_loop.py
 TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"
+# phase 11: the sharded paths on a (1, 1) mesh of the card; the dry run's
+# two production cells, each in a process of its own
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "single"),
+                ("qwen3-moe-235b-a22b", "decode_32k", "multi"))
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 600
 # phase 8: the second wave's rids and logical arrivals follow the first's;
 # a filtered content stays remembered for a minute of logical time
 SERVE_WAVE_RID = 1000
@@ -1739,6 +1764,347 @@ def phase_training(dev, card: str):
                 checks={"m": True, "n": True, "o": True, "p": True})
 
 
+def start_dryruns(extra=()):
+    """The dry run of each of DRYRUN_CELLS in a process of its own, its
+    output to a log beside its record."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(DRYRUN_DIR / f"{arch}__{shape}__{mesh}.log", "w")
+        procs.append((arch, shape, mesh, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(DRYRUN_DIR), *extra], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryruns(procs) -> None:
+    for *_, log, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def finish_dryruns(procs, card: str):
+    """(t): wait for the dry runs and print what each record holds."""
+    from repro_torch.launch import roofline
+    out = {}
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    for arch, shape, mesh, log, p in procs:
+        try:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fail(f"(t) the dry run of {arch} {shape} {mesh} took over "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        log.flush()
+        path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rc != 0 or not rec.get("ok"):
+            tail = (DRYRUN_DIR / f"{arch}__{shape}__{mesh}.log").read_text()
+            fail(f"(t) dry run {arch} {shape} {mesh}: rc {rc}, "
+                 f"{rec.get('error', '')}\n{rec.get('traceback', '')}\n"
+                 f"{tail[-3000:]}")
+        r = roofline.from_record(rec)
+        c = rec["cost"]
+        print(f"check (t): dry run {arch} {shape} on {rec['mesh']} "
+              f"({rec['n_devices']} ranks, fake backend, run on this "
+              f"machine's CPU in {rec['step_s']} s at depths "
+              f"{rec['depths_run']}, microbatches {rec['microbatches_run']}"
+              f"): ok {rec['ok']}; per device: parameters "
+              f"{rec['param_bytes_per_device']:.6g} bytes, {c['flops']:.6g} "
+              f"FLOPs, {c['bytes']:.6g} bytes moved, collectives "
+              f"{c['collective_counts']} ({c['collective_wire_bytes']:.6g} "
+              f"wire bytes), memory peak {rec['memory']['cpu']['Total']} "
+              f"bytes; roofline (H100 data sheet): compute {r.compute_s:.6g}"
+              f" s, memory {r.memory_s:.6g} s, collective "
+              f"{r.collective_s:.6g} s, dominant {r.dominant}, MODEL/counted"
+              f" {r.usefulness:.4f}; model FLOPs {rec['model_flops']:.6g}")
+        out[f"{arch}/{shape}/{mesh}"] = dict(
+            ok=rec["ok"], mesh=rec["mesh"], seconds=rec["step_s"],
+            param_bytes_per_device=rec["param_bytes_per_device"],
+            flops=c["flops"], bytes=c["bytes"],
+            collective_counts=c["collective_counts"],
+            collective_wire_bytes=c["collective_wire_bytes"],
+            memory_peak_bytes=rec["memory"]["cpu"]["Total"],
+            compute_s=r.compute_s, memory_s=r.memory_s,
+            collective_s=r.collective_s, dominant=r.dominant)
+    return out
+
+
+def mesh_training(dev, mesh, card: str, training: dict):
+    """(q): phase 10's training through ``fit(ctx=...)`` on the mesh."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.launch.steps import build_train_step, make_ctx, place
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import (TrainConfig, batch_to_device, fit,
+                                        make_optimizer)
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(TRAIN_ARCH)
+    ctx = make_ctx(mesh, None, cfg)
+    tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     lr=TRAIN_LR, warmup=TRAIN_WARMUP, log_every=TRAIN_STEPS)
+    res = fit(cfg, tc, ctx=ctx, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = statistics.median(res.step_times[1:]) * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    d_loss = max(abs(a - b) for a, b in zip(res.losses, training["losses"]))
+    print(f"mesh training ({card}): fit(ctx) on a (1, 1) mesh, {TRAIN_ARCH}"
+          f" at full width, phase 10's settings and batches: losses "
+          f"{[round(x, 4) for x in res.losses]} against phase 10's "
+          f"{[round(x, 4) for x in training['losses']]} (max diff "
+          f"{d_loss:.3g}, limit {TRAIN_MB_TOL}); median step {step_ms:.2f} "
+          f"ms (phase 10 {training['step_ms']:.2f}), {tok_s:.1f} tokens/s "
+          f"(phase 10 {training['tokens_per_s']:.1f}), peak memory {peak} "
+          f"bytes (phase 10 {training['peak_bytes']})")
+    if not (all(np.isfinite(res.losses)) and d_loss <= TRAIN_MB_TOL):
+        fail(f"(q) the sharded losses {res.losses} differ from phase 10's "
+             f"{training['losses']}")
+
+    model = build_model(cfg, ctx)
+    opt = make_optimizer(cfg, tc)
+    step1 = build_train_step(model, ctx, opt, 1)
+    step2 = build_train_step(model, ctx, opt, 2)
+    b = batch_to_device(synth_batch(cfg, TRAIN_STEPS, TRAIN_BATCH,
+                                    TRAIN_SEQ), dev)
+    batch = place(b, ctx.batch_spec(b))
+    holder = {"p": res.params, "s": res.opt_state}
+    losses = res.losses
+    del res
+
+    def one_step():
+        holder["p"], holder["s"], holder["m"] = step1(holder["p"],
+                                                      holder["s"], batch)
+    ops, kernels, dev_ms, n_launch = top_device_ops(one_step)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = dev_ms / wall_ms
+    # microbatches=2 against microbatches=1 from the same parameters: the
+    # loss at them, forward only, then the microbatched step's
+    with torch.no_grad():
+        l1 = float(model.loss(holder["p"], batch).full_tensor())
+    holder["p"], holder["s"], m2 = step2(holder["p"], holder["s"], batch)
+    l2 = float(m2["loss"])
+    print(f"mesh train step ({card}): {wall_ms:.2f} ms (host clock, "
+          f"synchronised; phase 10 {training['profiled_step_ms']:.2f}); "
+          f"under the profiler {n_launch} kernel launches (phase 10 "
+          f"{training['launches_per_step']}), device time {dev_ms:.2f} ms "
+          f"(phase 10 {training['device_ms_per_step']:.2f}), busy share "
+          f"{busy:.3f} (phase 10 {training['busy_share']:.3f})")
+    for name, ms, n in ops[:5]:
+        print(f"  op {name}: {ms:.4f} ms device, {n} calls")
+    print(f"check (q): microbatches=2 through build_train_step: loss "
+          f"{l2:.6f}; microbatches=1 at the same parameters {l1:.6f}, "
+          f"difference {abs(l2 - l1):.3g} (limit {TRAIN_MB_TOL})")
+    if not (np.isfinite(l2) and abs(l2 - l1) <= TRAIN_MB_TOL):
+        fail(f"(q) the microbatched step's loss {l2} against {l1}")
+    del holder, batch, b, m2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, tokens_per_s=tok_s,
+                peak_bytes=peak, launches_per_step=n_launch, device_ms_per_step=dev_ms,
+                profiled_step_ms=wall_ms, busy_share=busy,
+                max_loss_diff=d_loss, mb2_loss=l2, mb1_loss=l1)
+
+
+def logit_ratio(got, want) -> float:
+    """Largest difference over the largest reference logit."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def mesh_decode(dev, mesh, card: str, scorer: dict):
+    """(r): shard_prefill and shard_decode against the unsharded model, and
+    the MoE decode step weight-stationary off and on."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import (make_ctx, place, shard_decode,
+                                          shard_prefill)
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.specs import cache_shardings, param_shardings
+
+    cfg = get_config(ARCH)
+    ctx = make_ctx(mesh, None, cfg)
+    model, sharded = build_model(cfg), build_model(cfg, ctx)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    rng = np.random.default_rng(3)
+    B, pos = 8, FAMILY_STEP_POS
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, pos)),
+                                       dtype=torch.long, device=dev)}
+    out = {}
+    with torch.inference_mode():
+        lg_p, cache_p = model.prefill(params, batch)
+        pre, (_, pshard) = shard_prefill(sharded, ctx, {
+            k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()})
+        psh = place(params, pshard)
+        lg_ps, _ = pre(psh, batch)
+        r_pre = logit_ratio(lg_ps, lg_p)
+        cache = model.init_cache(B, LM_MAX_SEQ, device=dev)
+        for run, got in zip(cache["runs"], cache_p):
+            for k in run:
+                run[k][:, :, :pos] = got[k]
+        tok = lg_p.float().argmax(-1)
+        want, _ = model.decode_step(params, {"runs": [
+            {k: t.clone() for k, t in run.items()} for run in cache["runs"]]},
+            tok, pos)
+        dec, (_, cstruct, _, _) = shard_decode(sharded, ctx, B, LM_MAX_SEQ)
+        csh = place(cache, cache_shardings(cstruct, cfg, ctx))
+        got, _ = dec(psh, csh, tok, pos)
+        r_dec = logit_ratio(got, want)
+        step_ms = cuda_ms(lambda: dec(psh, csh, tok, pos), 10)
+        _, _, dev_ms, n_launch = top_device_ops(
+            lambda: dec(psh, csh, tok, pos))
+    print(f"check (r): {ARCH} at full width, B = {B}: shard_prefill of "
+          f"{pos} tokens against prefill, last-token logits within "
+          f"{r_pre:.5f} of the largest; shard_decode at pos {pos} against "
+          f"decode_step within {r_dec:.5f} (limit {BF16_REL_TOL})")
+    print(f"mesh decode step ({card}), B = {B}, pos {pos}: {step_ms:.4f} ms "
+          f"(CUDA events, 10 steps; phase 6 {scorer['decode_step_ms_b8']:.4f}"
+          f"), {n_launch} kernel launches (phase 6 "
+          f"{scorer['decode_step_launches']}), device time {dev_ms:.4f} ms "
+          f"(phase 6 {scorer['decode_step_device_ms']:.4f})")
+    if not (r_pre <= BF16_REL_TOL and r_dec <= BF16_REL_TOL):
+        fail("(r) the sharded prefill or decode step disagrees")
+    out.update(prefill_ratio=r_pre, decode_ratio=r_dec,
+               decode_step_ms=step_ms, decode_step_launches=n_launch,
+               decode_step_device_ms=dev_ms)
+    del params, psh, cache, csh, cache_p, lg_p, lg_ps, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MoE decode step through moe_forward, weight-stationary off and on
+    mcfg = dataclasses.replace(get_config(MESH_MOE_ARCH),
+                               n_layers=MESH_MOE_LAYERS)
+    mctx = make_ctx(mesh, None, mcfg)
+    p = build_model(mcfg).init(torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    p = place(p, param_shardings(p, mcfg, mctx))
+    tok = torch.as_tensor(rng.integers(0, mcfg.vocab, (B, 1)),
+                          dtype=torch.long, device=dev)
+    logits, times = {}, {}
+    with torch.inference_mode():
+        for ws in (False, True):
+            c = dataclasses.replace(mctx, moe_weight_stationary=ws)
+            m = build_model(mcfg, c)
+            cache = place(m.init_cache(B, FAMILY_MAX_SEQ, device=dev),
+                          cache_shardings(m.cache_struct(B, FAMILY_MAX_SEQ),
+                                          mcfg, c))
+            lg, _ = m.decode_step(p, cache, tok, pos)
+            logits[ws] = lg.full_tensor()
+            times[ws] = cuda_ms(lambda: m.decode_step(p, cache, tok, pos), 5)
+            del cache
+    same = torch.equal(logits[False], logits[True])
+    d = float((logits[False].float() - logits[True].float()).abs().max())
+    print(f"check (r): {MESH_MOE_ARCH} ({MESH_MOE_LAYERS} layers, full "
+          f"width) decode step at B = {B}, pos {pos} through moe_forward: "
+          f"weight-stationary off {times[False]:.4f} ms, on "
+          f"{times[True]:.4f} ms (CUDA events, 5 steps); logits equal "
+          f"{same} (max abs diff {d:.3g})")
+    if not same:
+        fail("(r) the weight-stationary MoE body disagrees with the other")
+    del p, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(moe_step_ms={"ws_off": times[False], "ws_on": times[True]},
+               moe_equal=same)
+    return out
+
+
+def mesh_serving(dev, mesh, engine, queries, card: str):
+    """(s): build(ServeConfig(mesh=...)) behind phase 4's engine."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.kernels.rule_match import rule_match
+    from repro_torch.serve import ServeConfig, Server, build
+
+    cfg = ServeConfig(model=ARCH, reduced=False, device=dev,
+                      rule_filter=engine, mesh=mesh, target_batch=8,
+                      deadline=0.01, max_seq=LM_MAX_SEQ,
+                      warmup=(1, 2, 4, 8))
+    srv = build(cfg)
+    reqs, expect_drop = scorer_requests(engine, queries,
+                                        srv.engine.cfg.vocab)
+    sync = Server(srv.group, dataclasses.replace(cfg, cache=None,
+                                                 trace=None))
+    sync_out = sync.serve(reqs, mode="sync")
+    rule_match.launches = 0
+    t0 = time.perf_counter()
+    mesh_out = srv.serve(reqs, mode="pipelined")
+    wall = time.perf_counter() - t0
+    launches = rule_match.launches
+    by_sync = {c.rid: c.tokens for c in sync_out}
+    by_mesh = {c.rid: c.tokens for c in mesh_out}
+    ids = {r.rid for r in reqs}
+    same = sorted(by_sync) == sorted(by_mesh) and all(
+        np.array_equal(by_sync[r], by_mesh[r]) for r in by_sync)
+    drops = ids - set(by_mesh)
+    print(f"check (s): build(ServeConfig(mesh=(1, 1))) -> "
+          f"{len(srv.group.replicas)} replica on "
+          f"{[str(d) for d in srv.group.replicas[0].devices]}; "
+          f"{len(mesh_out)} served in {wall:.3f} s ({card}), dropped "
+          f"{sorted(drops)} (sync {sorted(ids - set(by_sync))}, "
+          f"cpu_match_numpy {sorted(expect_drop)}); tokens equal to sync "
+          f"{same}; rule-match launches {launches}")
+    if not (same and drops == ids - set(by_sync) == expect_drop
+            and launches > 0):
+        fail("(s) the mesh-built group disagrees with the sync baseline")
+    del srv, sync
+    gc.collect()
+    return dict(replicas=1, served=len(mesh_out), dropped=len(drops),
+                seconds=wall, launches=launches)
+
+
+def phase_mesh(dev, engine, queries, card: str, training: dict,
+               scorer: dict):
+    """Phase 11: checks (q)-(t); the dry runs run meanwhile."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        init_distributed(dev.type)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+            print(f"phase 11: {dist.get_backend()} group of "
+                  f"{dist.get_world_size()} rank, mesh {mesh}")
+            q = mesh_training(dev, mesh, card, training)
+            r = mesh_decode(dev, mesh, card, scorer)
+            s = mesh_serving(dev, mesh, engine, queries, card)
+        finally:
+            dist.destroy_process_group()
+        t = finish_dryruns(procs, card)
+    finally:
+        stop_dryruns(procs)
+    wall = time.perf_counter() - t_phase
+    print(f"phase 11 took {wall:.1f} s")
+    return dict(training=q, decode=r, serving=s, dryrun=t, seconds=wall,
+                checks={"q": True, "r": True, "s": True, "t": True})
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1780,6 +2146,7 @@ def main() -> None:
     serving = phase_serving(dev, engine, queries, card)
     families = phase_families(dev, engine, queries, card)
     training = phase_training(dev, card)
+    mesh = phase_mesh(dev, engine, queries, card, training, scorer)
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     family_launches = {f"family_{a}": r["launches"]
                        for a, r in families["models"].items()
@@ -1795,12 +2162,13 @@ def main() -> None:
     print(json.dumps({"serving": {"card": card, **serving}}))
     print(json.dumps({"families": {"card": card, **families}}))
     print(json.dumps({"training": {"card": card, **training}}))
+    print(json.dumps({"mesh": {"card": card, **mesh}}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": launches + scorer["launches"] + serving["launches"]
-        + sum(family_launches.values()),
+        + sum(family_launches.values()) + mesh["serving"]["launches"],
         "launches_by_path": {"mct_wrapper": launches,
                              "route_scorer": scorer["launches"],
                              "serving_sync": serving["launches_sync"],
@@ -1808,7 +2176,8 @@ def main() -> None:
                                  serving["launches_pipelined"],
                              "serving_cached": serving["launches_cached"],
                              "serving_live": serving["launches_live"],
-                             **family_launches},
+                             **family_launches,
+                             "serving_mesh": mesh["serving"]["launches"]},
         "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "plain_packed_ms": t["plain_packed_ms"],

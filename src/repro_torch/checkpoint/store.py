@@ -17,8 +17,11 @@ Fault-tolerance contract:
 - `AsyncCheckpointer` snapshots device tensors to host memory and writes in
   a background thread, so the train loop is blocked only for the
   device->host copy (checkpoint/compute overlap).
-Restoring onto another mesh (``restore(..., shardings=...)``) needs the
-sharding slice (ROADMAP.md queue 1, item 11).
+
+A DTensor leaf is saved whole: every rank of its mesh gathers it, and
+under a process group rank 0 alone writes. ``restore(..., shardings=...)``
+is the elastic re-mesh path: a checkpoint written from one mesh comes back
+as DTensors laid out on another.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _children(tree) -> Optional[Iterator[Tuple[str, Any]]]:
@@ -70,10 +75,21 @@ def _rebuild(tree, leaf_of, prefix: str = ""):
     return type(tree)(sub(str(i), v) for i, v in enumerate(tree))
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (every rank of its mesh must call)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writes() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the one
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """(array to write, logical dtype name) of a tensor or array leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -84,15 +100,17 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save(directory, step: int, tree, *, keep: int = 3) -> Path:
     d = Path(directory)
-    d.mkdir(parents=True, exist_ok=True)
     tmp = d / f"step_{step}.tmp"
     final = d / f"step_{step}"
+    arrays = {key: _to_numpy(leaf) for key, leaf in _flatten(tree).items()}
+    if not _writes():
+        return final
+    d.mkdir(parents=True, exist_ok=True)
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
     manifest = {"step": step, "leaves": {}, "time": time.time()}
-    for key, leaf in _flatten(tree).items():
-        arr, logical = _to_numpy(leaf)
+    for key, (arr, logical) in arrays.items():
         fn = key.replace("/", "__") + ".npy"
         np.save(tmp / fn, arr)
         manifest["leaves"][key] = {"file": fn, "shape": list(arr.shape),
@@ -132,14 +150,14 @@ def restore(directory, step: int, target_tree, shardings=None, *,
     """Restore into the structure of ``target_tree``, whose tensor leaves
     (meta tensors will do) give each leaf's shape and dtype; each restored
     tensor goes to ``device``, or else to its target's device (the CPU for
-    a meta target)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) needs the port of sharding/specs.py "
-            "(ROADMAP queue 1, item 11)")
+    a meta target). If ``shardings`` (a matching tree of
+    ``sharding.specs.NamedSharding``) is given, each leaf becomes a DTensor
+    with its sharding, on its mesh's device — this is the elastic-remesh
+    path."""
     d = Path(directory) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     flat_t = _flatten(target_tree)
+    flat_s = _flatten(shardings) if shardings is not None else {}
     out = {}
     for key, struct in flat_t.items():
         info = manifest["leaves"].get(key)
@@ -153,6 +171,12 @@ def restore(directory, step: int, target_tree, shardings=None, *,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if key in flat_s:
+            sh = flat_s[key]
+            out[key] = distribute_tensor(
+                t.to(sh.mesh.device_type, struct.dtype), sh.mesh,
+                sh.placements, src_data_rank=None)
+            continue
         dev = device
         if dev is None:
             dev = "cpu" if struct.device.type == "meta" else struct.device
@@ -192,5 +216,5 @@ class AsyncCheckpointer:
 
 def _host_copy(leaf):
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # Shape cells (assigned input-shape set for the LM family)
@@ -32,6 +32,10 @@ TRAIN_4K = ShapeCell("train_4k", 4_096, 256, "train")
 PREFILL_32K = ShapeCell("prefill_32k", 32_768, 32, "prefill")
 DECODE_32K = ShapeCell("decode_32k", 32_768, 128, "decode")
 LONG_500K = ShapeCell("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeCell, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                   LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +251,9 @@ def get_config(arch: str) -> ModelConfig:
     if cfg.arch != arch:
         raise ValueError(f"{mod_name} holds {cfg.arch!r}, not {arch!r}")
     return cfg
+
+
+def all_cells() -> Sequence[Tuple[str, ShapeCell]]:
+    """Every runnable (arch, shape) dry-run cell."""
+    return [(a, cell) for a in ASSIGNED_ARCHS
+            for cell in get_config(a).shape_cells()]

@@ -2,9 +2,17 @@
 sliding-window / bidirectional masks, GQA grouped heads, single-token
 decode against a KV cache, and the VLM's cross attention.
 
-Port of ``repro.models.attention``, grouped layout only: the ``expand`` and
-``qblock`` layouts exist only under a sharding context (ROADMAP.md queue 1,
-item 11). Scores, softmax and accumulation are float32, as the reference's
+Port of ``repro.models.attention`` with its three layouts, which a sharding
+context chooses (``ShardCtx.attn_layout``): ``grouped`` (GQA heads as the
+cache holds them), ``expand`` (KV heads repeated up to the query heads, so
+that the head dim shards over ``model`` when the KV heads do not divide
+it) and ``qblock`` (query blocks as a batch-like dim, sharded over
+``model`` when no head count divides it). On DTensors, ``shard`` and
+``shard_qblocks`` redistribute; without a context the layout is grouped.
+Attention is independent across batch rows and heads, so over a mesh the
+blockwise and decode kernels run on each rank's (batch, head) shards
+(``local_map``, as GSPMD partitions them with no collective); only a
+sequence-split cache goes through DTensor's own rules. Scores, softmax and accumulation are float32, as the reference's
 ``preferred_element_type=jnp.float32`` makes them.
 """
 from __future__ import annotations
@@ -12,8 +20,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.sharding.specs import (merge_last, on_batch_head_shards,
+                                       split_last)
 
 NEG_INF = -1e30
 
@@ -27,6 +38,15 @@ def init_attn(generator: torch.Generator, d_model: int, n_heads: int,
         "wo": dense_init(generator, n_heads * head_dim, d_model, dtype,
                          scale=1.0 / math.sqrt(n_heads * head_dim)),
     }
+
+
+def _attn_local(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on each rank's (batch, head) shards; a
+    sequence-split k (a decode cache) goes through DTensor's rules."""
+    if isinstance(k, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 1 for p in k.placements):
+        return fn(q, k, v, **kw)
+    return on_batch_head_shards(fn, q, k, v, **kw)
 
 
 def _block_pairs(n_q: int, n_kv: int, block_q: int, block_kv: int,
@@ -108,6 +128,87 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int = 0, block_q: int = 512,
+                     block_kv: int = 512, shard_blocks=None) -> torch.Tensor:
+    """Query-block-PARALLEL attention: all query blocks are a batch-like dim
+    (shardable over the model axis) instead of a sequential loop.
+
+    Used when neither KV nor Q heads divide the model axis (hymba: 25
+    heads). Windowed layers gather a per-block KV window (static indices);
+    global layers run over KV blocks with online softmax and causal
+    masking (up to 2x the triangle's FLOPs, in exchange for n-way
+    sharding).
+
+    q: (B, S, K, G, d); k, v: (B, S, K, d). Returns (B, S, K, G, d).
+    """
+    B, S, K, G, d = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    block_q = min(block_q, S)
+    pad = (-S) % block_q
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pad)) if pad else q
+    Sp = S + pad
+    nb = Sp // block_q
+    qb = qp.reshape(B, nb, block_q, K, G, d)
+    if shard_blocks is not None:
+        qb = shard_blocks(qb)
+    qb = qb.float()
+    scale = 1.0 / math.sqrt(d)
+    q_pos = (torch.arange(nb, device=dev) * block_q)[:, None] \
+        + torch.arange(block_q, device=dev)[None]
+
+    if causal and window > 0:
+        wp = window + block_q
+        base = (torch.arange(nb, device=dev) * block_q)[:, None] - window \
+            + torch.arange(wp, device=dev)[None, :]              # (nb, wp)
+        idx = torch.clamp(base, 0, Skv - 1)
+        kw = k[:, idx].float()                                # (B,nb,wp,K,d)
+        vw = v[:, idx].float()
+        s = torch.einsum("bnqkgd,bnwkd->bnkgqw", qb, kw) * scale
+        mask = (base[:, None, :] <= q_pos[..., None]) \
+            & (base[:, None, :] > q_pos[..., None] - window) \
+            & (base >= 0)[:, None, :] & (base < Skv)[:, None, :]
+        s = torch.where(mask[None, :, None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bnkgqw,bnwkd->bnqkgd", p, vw)
+    else:
+        block_kv = min(block_kv, Skv)
+        pk = (-Skv) % block_kv
+        if pk:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+        n_kv = (Skv + pk) // block_kv
+        k_ids = torch.arange(block_kv, device=dev)
+        acc = torch.zeros((B, nb, block_q, K, G, d), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, nb, K, G, block_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, nb, K, G, block_q), dtype=torch.float32,
+                        device=dev)
+        for j in range(n_kv):
+            ks = j * block_kv
+            kb = k[:, ks:ks + block_kv].float()
+            vb = v[:, ks:ks + block_kv].float()
+            s = torch.einsum("bnqkgd,bskd->bnkgqs", qb, kb) * scale
+            k_pos = ks + k_ids
+            mask = k_pos[None, None, :] < Skv
+            if causal:
+                mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+            s = torch.where(mask[None, :, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            pexp = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + pexp.sum(dim=-1)
+            m = m_new
+            pv = torch.einsum("bnkgqs,bskd->bnqkgd", pexp, vb)
+            acc = acc * torch.movedim(corr, -1, 2)[..., None] + pv
+        out = acc / torch.clamp(torch.movedim(l, -1, 2)[..., None],
+                                min=1e-30)
+    out = out.reshape(B, Sp, K, G, d)[:, :S]
+    return out.to(q.dtype)
+
+
 def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, *, pos: int,
                             window: int = 0) -> torch.Tensor:
@@ -137,21 +238,27 @@ def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
 def _split_heads(x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int
                  ) -> torch.Tensor:
     """(B, S, H*hd) -> grouped (B, S, K, G, hd), query head h = k * G + g."""
-    B, S, _ = x.shape
-    return x.reshape(B, S, n_kv, n_heads // n_kv, head_dim)
+    return split_last(x, n_kv, n_heads // n_kv, head_dim)
 
 
 def _split_kv(x: torch.Tensor, n_kv: int, head_dim: int) -> torch.Tensor:
-    B, S, _ = x.shape
-    return x.reshape(B, S, n_kv, head_dim)
+    return split_last(x, n_kv, head_dim)
 
 
 def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta, positions=None,
                  causal: bool = True, window: int = 0, block_q: int = 512,
-                 block_kv: int = 512):
+                 block_kv: int = 512, shard=None, layout: str = "grouped",
+                 shard_qblocks=None):
     """Full-sequence attention (train / prefill). Returns (out, (k, v)),
-    the cache entries in the compact (B, S, K, hd) layout."""
+    the cache entries in the compact (B, S, K, hd) layout whatever the
+    layout of the computation.
+
+    layout="expand": KV heads are replicated up to n_heads so the head dim
+    can be tensor-sharded when n_kv_heads does not divide the model axis.
+    layout="qblock": :func:`qblock_attention`, its query blocks passed
+    through ``shard_qblocks``. ``shard`` constrains q, k and v otherwise.
+    """
     B, S, _ = x.shape
     q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
                      head_dim)
@@ -162,15 +269,60 @@ def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = blockwise_attention(q, k, v, causal=causal, window=window,
-                              block_q=block_q, block_kv=block_kv)
-    out = out.reshape(B, S, n_heads * head_dim)
-    return out @ params["wo"].to(x.dtype), (k, v)
+    cache = (k, v)
+    if layout == "qblock":
+        out = qblock_attention(q, k, v, causal=causal, window=window,
+                               block_q=block_q, block_kv=block_kv,
+                               shard_blocks=shard_qblocks)
+        out = merge_last(out, 3)
+        return out @ params["wo"].to(x.dtype), cache
+    if layout == "expand":
+        G = n_heads // n_kv_heads
+        q = q.reshape(B, S, n_heads, 1, head_dim)
+        k = k[:, :, :, None].expand(B, S, n_kv_heads, G, head_dim) \
+            .reshape(B, S, n_heads, head_dim)
+        v = v[:, :, :, None].expand(B, S, n_kv_heads, G, head_dim) \
+            .reshape(B, S, n_heads, head_dim)
+    if shard is not None:
+        q, k, v = shard(q), shard(k), shard(v)
+    out = _attn_local(blockwise_attention, q, k, v, causal=causal,
+                      window=window, block_q=block_q, block_kv=block_kv)
+    out = merge_last(out, 3)
+    return out @ params["wo"].to(x.dtype), cache
+
+
+def _write_pos(cache: torch.Tensor, pos: int, val: torch.Tensor) -> None:
+    """cache[:, pos] = val in place; cache (B, S, K, hd), val (B, K, hd).
+
+    On a DTensor cache the write runs on the local shards, on the rank
+    that holds position ``pos`` of a sequence-sharded cache."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = val.to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    # the value's layout: the cache's, without its sequence dim
+    vpl = [Replicate() if (isinstance(p, Shard) and p.dim == 1) else
+           (Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p)
+           for p in pl]
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    v_loc = val.redistribute(mesh, vpl).to_local()
+    # this rank's slice of the sequence (the policy splits it evenly,
+    # major mesh dim first)
+    coord, idx, n = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    size = cache.shape[1] // n
+    if idx * size <= pos < (idx + 1) * size:
+        cache.to_local()[:, pos - idx * size] = v_loc.to(cache.dtype)
 
 
 def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, *, pos: int, n_heads: int,
-                n_kv_heads: int, head_dim: int, rope_theta, window: int = 0):
+                n_kv_heads: int, head_dim: int, rope_theta, window: int = 0,
+                shard=None):
     """One-token decode. x: (B, 1, D); cache: (B, S, K, hd), written in
     place at index ``pos``. Returns (out, cache_k, cache_v)."""
     B = x.shape[0]
@@ -182,17 +334,20 @@ def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
         p = torch.full((1,), pos, device=x.device)
         q = apply_rope(q, p, rope_theta)
         k = apply_rope(k, p, rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    out = attention_scores_decode(q, cache_k, cache_v, pos=pos + 1,
-                                  window=window)
-    out = out.reshape(B, 1, n_heads * head_dim)
+    _write_pos(cache_k, pos, k[:, 0])
+    _write_pos(cache_v, pos, v[:, 0])
+    ck, cv = cache_k, cache_v
+    if shard is not None:
+        ck, cv = shard(ck), shard(cv)
+    out = _attn_local(attention_scores_decode, q, ck, cv, pos=pos + 1,
+                      window=window)
+    out = merge_last(out, 3)
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
 
 
 def cross_attn_forward(params, x: torch.Tensor, kv_src: torch.Tensor, *,
-                       n_heads: int, n_kv_heads: int, head_dim: int
-                       ) -> torch.Tensor:
+                       n_heads: int, n_kv_heads: int, head_dim: int,
+                       shard=None) -> torch.Tensor:
     """Cross attention: queries from x (B, S, D), keys and values from
     kv_src (B, T, D), no mask and no RoPE. Returns (B, S, D)."""
     B, S, _ = x.shape
@@ -202,6 +357,8 @@ def cross_attn_forward(params, x: torch.Tensor, kv_src: torch.Tensor, *,
                   head_dim)
     v = _split_kv(kv_src @ params["wv"].to(kv_src.dtype), n_kv_heads,
                   head_dim)
-    out = blockwise_attention(q, k, v, causal=False, window=0)
-    out = out.reshape(B, S, n_heads * head_dim)
+    if shard is not None:
+        q, k, v = shard(q), shard(k), shard(v)
+    out = _attn_local(blockwise_attention, q, k, v, causal=False, window=0)
+    out = merge_last(out, 3)
     return out @ params["wo"].to(x.dtype)

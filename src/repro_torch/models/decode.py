@@ -19,8 +19,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import dtype_of, norm_apply
 from repro_torch.models.transformer import (_norm_kind, _unembed, apply_block,
-                                            attn_runs, forward,
+                                            attn_runs, embed_lookup, forward,
                                             vlm_segments, xlstm_segments)
+from repro_torch.sharding.specs import merge_last, split_last
 
 
 def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
@@ -94,42 +95,45 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 
 def decode_step(params, cache, token: torch.Tensor, pos: int,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+                cfg: ModelConfig, ctx=None) -> Tuple[torch.Tensor, Any]:
     """token: (B, 1) integer ids; pos: the write index into the cache.
 
     Returns (logits (B, 1, V), cache), the cache updated in place.
     """
-    x = params["embed"][token].to(dtype_of(cfg.dtype))
+    x = embed_lookup(params["embed"], token).to(dtype_of(cfg.dtype))
     if cfg.family == "ssm":
         x = _xlstm_decode(params, cache, x, cfg)
     elif cfg.cross_attn_every:
-        x = _vlm_decode(params, cache, x, pos, cfg)
+        x = _vlm_decode(params, cache, x, pos, cfg, ctx)
     else:
         for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
                                             attn_runs(cfg)):
             for i, blk in enumerate(run_p):
-                x, _ = apply_block(blk, x, cfg, window=w, theta=th,
+                x, _ = apply_block(blk, x, cfg, window=w, theta=th, ctx=ctx,
                                    mode="decode", pos=pos,
                                    cache={k: t[i] for k, t in run_c.items()})
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
-    return _unembed(params, cfg, x), cache
+    logits = _unembed(params, cfg, x)
+    if ctx:
+        logits = ctx.act_logits(logits)
+    return logits, cache
 
 
-def _vlm_decode(params, cache, x, pos, cfg):
+def _vlm_decode(params, cache, x, pos, cfg, ctx=None):
     for s, (blks, cross) in enumerate(zip(params["blocks"], params["cross"])):
         for i, blk in enumerate(blks):
             x, _ = apply_block(blk, x, cfg, window=0, theta=cfg.rope_theta,
-                               mode="decode", pos=pos,
+                               ctx=ctx, mode="decode", pos=pos,
                                cache={"k": cache["k"][s, i],
                                       "v": cache["v"][s, i]})
         h = norm_apply(cross["norm"], x, "rms", cfg.norm_eps)
         q = h @ cross["attn"]["wq"].to(h.dtype)
         B = q.shape[0]
-        q = q.reshape(B, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                      cfg.head_dim)
+        q = split_last(q, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                       cfg.head_dim)
         o = attn.attention_scores_decode(q, cache["xk"][s], cache["xv"][s],
                                          pos=cfg.n_vision_tokens)
-        o = o.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+        o = merge_last(o, 3)
         o = o @ cross["attn"]["wo"].to(h.dtype)
         x = x + torch.tanh(cross["gate"]).to(x.dtype) * o
     return x
@@ -158,12 +162,14 @@ def _xlstm_decode(params, cache, x, cfg):
     return x
 
 
-def prefill(params, batch, cfg: ModelConfig):
+def prefill(params, batch, cfg: ModelConfig, ctx=None):
     """Full-sequence prefill. Returns (last-token logits (B, 1, V), the
     prompt's cache as ``forward`` collects it), or (logits, None) for an
     encoder-only arch."""
-    h, caches = forward(params, batch, cfg, mode="prefill")
+    h, caches = forward(params, batch, cfg, ctx, mode="prefill")
     logits = _unembed(params, cfg, h[:, -1:])
+    if ctx:
+        logits = ctx.act_logits(logits)
     if cfg.encoder_only:
         return logits, None
     return logits, caches

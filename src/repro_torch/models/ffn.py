@@ -17,11 +17,14 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, act: str,
     return p
 
 
-def ffn_forward(params, x: torch.Tensor, act: str) -> torch.Tensor:
+def ffn_forward(params, x: torch.Tensor, act: str, shard=None
+                ) -> torch.Tensor:
     f = act_fn(act)
     h = x @ params["wi"].to(x.dtype)
     if is_gated(act):
         h = f(x @ params["wg"].to(x.dtype)) * h
     else:
         h = f(h)
+    if shard is not None:
+        h = shard(h)
     return h @ params["wo"].to(x.dtype)

@@ -1,13 +1,26 @@
 """Mixture-of-Experts FFN: sort-based capacity dispatch and the dense
 reference.
 
-Port of ``repro.models.moe`` on one device. The reference's ``moe_forward``
-runs its body under ``shard_map`` with experts (``ep``) or the expert d_ff
-(``tp``) split over the ``model`` axis and the weights gathered over the
-``data`` axis; with one device (``tp = 1``) both modes are the same
-computation, which is what :func:`moe_forward` computes. The multi-device
-split and the weight-stationary decode body wait for the sharding slice
-(ROADMAP.md queue 1, item 11).
+Port of ``repro.models.moe``. Over a mesh, :func:`moe_forward` runs the
+reference's ``shard_map`` bodies on local shards (``DTensor.to_local``)
+with the same collectives, from ``torch.distributed._functional_collectives``:
+
+- ``ep``  — experts split over the ``model`` axis (num_experts % tp == 0):
+  each rank dispatches the tokens routed to ITS experts into an
+  (E_loc, C, D) capacity buffer, and the partial outputs are summed over
+  ``model``;
+- ``tp``  — every rank holds all experts, the expert d_ff split over
+  ``model``; the d_ff partial products are summed over ``model``.
+
+Both gather the FSDP weight shards over the ``data`` axis inside the body.
+The weight-stationary decode body gathers the tokens over the FSDP axis
+instead, sums the partial products over it, and sends each rank back its
+own rows (an all-to-all). Without a mesh it is the ``tp = 1`` case on one
+device. A sum over an axis whose result every rank then holds is a sum
+forward and the identity backward (shard_map's transpose of ``psum``
+into a replicated output); inputs leave the body with their gradients
+marked partial over the axes they are replicated on
+(``sharding.specs.to_local``).
 
 Token dispatch is the Switch-style capacity buffer with dropping: a stable
 sort of the tokens by expert, a scatter into an (E, C, D) buffer, the
@@ -24,9 +37,13 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.common import (_trunc_normal, act_fn, dense_init,
                                        is_gated)
+from repro_torch.sharding.specs import (P, all_gather, axis_sizes, group,
+                                       placements, psum, to_local)
 
 
 def init_moe(generator: torch.Generator, d_model: int, cfg, act: str,
@@ -71,14 +88,16 @@ def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
 
 def _dispatch_compute(x_flat: torch.Tensor, expert_of_tok: torch.Tensor,
                       wi, wg, wo, *, n_local: int, local_off: int,
-                      capacity: int, act: str) -> torch.Tensor:
+                      capacity: int, act: str, partial_d=None,
+                      partial_f=None) -> torch.Tensor:
     """Route tokens to local experts via a stable sort and a capacity
     buffer, then run the expert FFN.
 
     x_flat: (t, D); expert_of_tok: (t,) global expert id for this slot;
     wi/wg: (E_loc, D, F); wo: (E_loc, F, D); local experts are
     [local_off, local_off + n_local). Returns (t, D): zeros for tokens not
-    local or dropped.
+    local or dropped. ``partial_d`` completes the contraction over a D
+    split (weight-stationary), ``partial_f`` the one over an F split.
     """
     t, D = x_flat.shape
     dev = x_flat.device
@@ -88,7 +107,8 @@ def _dispatch_compute(x_flat: torch.Tensor, expert_of_tok: torch.Tensor,
     key = torch.where(is_local, local_e, n_local)            # sentinel last
     order = torch.argsort(key, stable=True)
     sorted_e = key[order]
-    counts = torch.bincount(key, minlength=n_local + 1)
+    counts = torch.zeros(n_local + 1, dtype=key.dtype, device=dev) \
+        .scatter_add_(0, key, torch.ones_like(key))      # bincount
     seg_start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t, device=dev) - seg_start[sorted_e]
     valid = (sorted_e < n_local) & (pos < capacity)
@@ -100,12 +120,16 @@ def _dispatch_compute(x_flat: torch.Tensor, expert_of_tok: torch.Tensor,
     buf[slot] = torch.where(valid[:, None], x_sorted, 0)
     buf = buf[:-1].reshape(n_local, capacity, D)
 
-    h = torch.einsum("ecd,edf->ecf", buf, wi.to(buf.dtype))
+    done_d = partial_d or (lambda t: t)
+    h = done_d(torch.einsum("ecd,edf->ecf", buf, wi.to(buf.dtype)))
     if wg is not None:
-        h = f(torch.einsum("ecd,edf->ecf", buf, wg.to(buf.dtype))) * h
+        h = f(done_d(torch.einsum("ecd,edf->ecf", buf,
+                                  wg.to(buf.dtype)))) * h
     else:
         h = f(h)
     y = torch.einsum("ecf,efd->ecd", h, wo.to(h.dtype))
+    if partial_f is not None:
+        y = partial_f(y)
     y_flat = y.reshape(n_local * capacity, D)
 
     out_sorted = torch.where(
@@ -116,24 +140,114 @@ def _dispatch_compute(x_flat: torch.Tensor, expert_of_tok: torch.Tensor,
     return out
 
 
-def moe_forward(params, x: torch.Tensor, *, cfg, act: str) -> torch.Tensor:
-    """MoE FFN with capacity dropping on one device. x: (B, S, D).
+def moe_forward(params, x: torch.Tensor, *, cfg, act: str, mesh=None,
+                batch_axes=("data",), fsdp_axis: str = "data",
+                model_axis: str = "model", weight_stationary: bool = False
+                ) -> torch.Tensor:
+    """MoE FFN with capacity dropping. x: (B, S, D), over a mesh sharded
+    over ``batch_axes``. Returns (B, S, D) (a DTensor over a mesh).
 
-    The capacity is the reference's for one device holding every token
-    (``capacity_for(B * S, ...)``); each of the top-k slots dispatches
-    separately and the slots are summed with their softmax weights."""
+    weight_stationary=True (decode-optimised path): expert weights are
+    NEVER gathered — tokens are all-gathered over the fsdp axis, each rank
+    computes with its D-shard of the weights, and partial products are
+    summed over the fsdp axis.
+
+    Without a mesh: one device holding every token, the capacity
+    ``capacity_for(B * S, ...)``.
+    """
     E, K = cfg.num_experts, cfg.top_k
+    if mesh is None:
+        B, S, D = x.shape
+        xf = x.reshape(B * S, D)
+        cap = capacity_for(max(1, B * S), E, K, cfg.capacity_factor)
+        cw, topi = _route(xf, params["router"], K)
+        acc = torch.zeros_like(xf)
+        for j in range(K):
+            outj = _dispatch_compute(xf, topi[:, j], params["wi"],
+                                     params.get("wg"), params["wo"],
+                                     n_local=E, local_off=0, capacity=cap,
+                                     act=act)
+            acc = acc + cw[:, j, None].to(acc.dtype) * outj
+        return acc.reshape(B, S, D)
+
+    sizes = axis_sizes(mesh)
+    tp = sizes[model_axis]
+    mode = cfg.parallel_mode
+    if mode == "ep" and E % tp != 0:
+        mode = "tp"
+    gated = params.get("wg") is not None
+    if mode == "ep":
+        wspec = P(model_axis, fsdp_axis, None)
+        wospec = P(model_axis, None, fsdp_axis)
+        n_local = E // tp
+        local_off = mesh.get_local_rank(model_axis) * n_local
+    else:
+        wspec = P(None, fsdp_axis, model_axis)
+        wospec = P(None, model_axis, fsdp_axis)
+        n_local, local_off = E, 0
+    xspec = P(tuple(batch_axes), None, None)
+    dp_total = int(np.prod([sizes[a] for a in batch_axes]))
+    dp_fsdp = sizes[fsdp_axis] if fsdp_axis else 1
     B, S, D = x.shape
-    xf = x.reshape(B * S, D)
-    cap = capacity_for(max(1, B * S), E, K, cfg.capacity_factor)
-    cw, topi = _route(xf, params["router"], K)
-    acc = torch.zeros_like(xf)
-    for j in range(K):
-        outj = _dispatch_compute(xf, topi[:, j], params["wi"],
-                                 params.get("wg"), params["wo"], n_local=E,
-                                 local_off=0, capacity=cap, act=act)
-        acc = acc + cw[:, j, None].to(acc.dtype) * outj
-    return acc.reshape(B, S, D)
+    t_local = max(1, (B // dp_total) * S)
+
+    plain = not isinstance(x, DTensor)
+    x_loc = to_local(x, mesh, xspec)
+    router = to_local(params["router"], mesh, P(None, None))
+    wi = to_local(params["wi"], mesh, wspec)
+    wg = to_local(params["wg"], mesh, wspec) if gated else None
+    wo = to_local(params["wo"], mesh, wospec)
+    b, s, d = x_loc.shape
+
+    if weight_stationary:
+        cap_ws = capacity_for(t_local * dp_fsdp, E, K, cfg.capacity_factor)
+        t_loc = b * s
+        x_all = all_gather(x_loc.reshape(t_loc, d), mesh, fsdp_axis, 0)
+        t_all = t_loc * dp_fsdp
+        cw, topi = _route(x_all, router, K)
+        rd = mesh.get_local_rank(fsdp_axis)
+        d_loc = wi.shape[1]
+        x_slice = x_all[:, rd * d_loc:(rd + 1) * d_loc]
+        acc = torch.zeros((t_all, d_loc), dtype=x_loc.dtype,
+                          device=x_loc.device)
+        for j in range(K):
+            outj = _dispatch_compute(
+                x_slice, topi[:, j], wi, wg, wo, n_local=n_local,
+                local_off=local_off, capacity=cap_ws, act=act,
+                partial_d=lambda h: psum(h, mesh, fsdp_axis),
+                partial_f=(None if mode == "ep" else
+                           lambda y: psum(y, mesh, model_axis)))
+            acc = acc + cw[:, j, None].to(acc.dtype) * outj
+        if mode == "ep":
+            acc = psum(acc, mesh, model_axis)  # combine expert groups
+        # back to this rank's tokens and the full D: rank r sends rank j
+        # the D-slice r of j's rows
+        if dp_fsdp > 1:
+            acc = funcol.all_to_all_single_autograd(
+                acc.contiguous(), None, None, group(mesh, fsdp_axis))
+            acc = acc.reshape(dp_fsdp, t_loc, d_loc).transpose(0, 1)
+        out_loc = acc.reshape(b, s, d_loc * dp_fsdp)
+    else:
+        cap = capacity_for(t_local, E, K, cfg.capacity_factor)
+        xf = x_loc.reshape(b * s, d)
+        # FSDP: collect the d_model shards of the weights
+        wi = all_gather(wi, mesh, fsdp_axis, 1)
+        wo = all_gather(wo, mesh, fsdp_axis, 2)
+        if gated:
+            wg = all_gather(wg, mesh, fsdp_axis, 1)
+        cw, topi = _route(xf, router, K)
+        acc = torch.zeros_like(xf)
+        for j in range(K):
+            outj = _dispatch_compute(xf, topi[:, j], wi, wg, wo,
+                                     n_local=n_local, local_off=local_off,
+                                     capacity=cap, act=act)
+            acc = acc + cw[:, j, None].to(acc.dtype) * outj
+        out_loc = psum(acc, mesh, model_axis).reshape(b, s, d)
+    out = DTensor.from_local(out_loc, mesh, placements(mesh, xspec),
+                             run_check=False)
+    if plain:
+        return out.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return out
 
 
 def moe_ref(params, x: torch.Tensor, *, cfg, act: str) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Model registry: the public entry point for building any assigned arch.
 
-Port of ``repro.models.registry``. There is no sharding context (the port's
-sharding is ROADMAP.md queue 1, item 11). ``Model.loss(params, batch)`` is
-the training loss (``transformer.loss_fn``) that ``repro_torch.train``
-differentiates."""
+Port of ``repro.models.registry``. ``build_model(cfg, ctx)`` binds a sharding
+context (``sharding.specs.ShardCtx``) into every function, as the
+reference does; with one, the functions take DTensor parameters and
+inputs and run under ``implicit_replication``, so that the plain tensors
+the model makes (positions, masks, zeros) act as replicated.
+``Model.loss(params, batch)`` is the training loss (``transformer.loss_fn``)
+that ``repro_torch.train`` differentiates. ``Model.init(device="meta")``
+gives the parameter tree's shapes and dtypes without storage."""
 from __future__ import annotations
 
 import functools
@@ -11,11 +15,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import decode as decode_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.sharding.specs import implicit_replication
 
 
 class Model(NamedTuple):
@@ -31,11 +37,27 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]
 
 
+class _OnMeta(TorchFunctionMode):
+    """Every tensor the initialisers make lands on the meta device, and
+    nothing is drawn."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
+
 def _init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
           device="cuda"):
     """Random parameters on ``device``, drawn from ``generator`` (seeded 0
-    when none is given), which must live on that device."""
-    dev = resolve_device(device)
+    when none is given), which must live on that device. On ``"meta"``:
+    the tree's shapes and dtypes, nothing drawn."""
+    dev = resolve_device(device, meta_ok=True)
+    if dev.type == "meta":
+        with _OnMeta():
+            return tf_mod.init_params(cfg, torch.Generator())
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
@@ -44,17 +66,33 @@ def _init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
     return tf_mod.init_params(cfg, generator)
 
 
-def build_model(cfg_or_arch) -> Model:
+def _sharded(fn: Callable, ctx) -> Callable:
+    """``fn`` with ``ctx`` bound, under ``implicit_replication`` when there
+    is a context."""
+    fn = functools.partial(fn, ctx=ctx)
+    if ctx is None:
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with implicit_replication():
+            return fn(*args, **kwargs)
+    return run
+
+
+def build_model(cfg_or_arch, ctx=None) -> Model:
     """Build a Model for a ModelConfig or an assigned architecture id."""
     cfg = (cfg_or_arch if isinstance(cfg_or_arch, ModelConfig)
            else get_config(cfg_or_arch))
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg),
-        loss=functools.partial(tf_mod.loss_fn, cfg=cfg),
-        logits=functools.partial(tf_mod.logits_fn, cfg=cfg),
-        prefill=functools.partial(decode_mod.prefill, cfg=cfg),
-        decode_step=functools.partial(decode_mod.decode_step, cfg=cfg),
+        loss=_sharded(functools.partial(tf_mod.loss_fn, cfg=cfg), ctx),
+        logits=_sharded(functools.partial(tf_mod.logits_fn, cfg=cfg), ctx),
+        prefill=_sharded(functools.partial(decode_mod.prefill, cfg=cfg),
+                         ctx),
+        decode_step=_sharded(functools.partial(decode_mod.decode_step,
+                                               cfg=cfg), ctx),
         cache_struct=functools.partial(decode_mod.cache_struct, cfg),
         init_cache=functools.partial(decode_mod.init_cache, cfg),
     )

@@ -13,8 +13,13 @@ lists of per-layer parameter dicts, in layer order, applied in Python loops:
 - ssm (xLSTM): ``mblocks`` is one list per segment of ``slstm_every - 1``
   mLSTM blocks, and ``sblocks`` one sLSTM block per segment, after them.
 
-Without a sharding context the MoE layers run the reference's unsharded
-path, ``moe_ref``.
+``ctx`` (a ``sharding.specs.ShardCtx``) threads the reference's sharding
+constraints through on DTensors: ``act_btd`` after each residual add,
+``act_ff`` on the FFN's hidden, ``act_kv`` on attention's q, k, v in the
+layout ``ctx.attn_layout`` picks, ``act_logits`` on the unembed, the MoE
+layers' ``moe_forward`` over the mesh, and the sLSTM's local-gradient form
+where ``ctx.slstm_local_grad``. Without a context the MoE layers run the
+reference's unsharded path, ``moe_ref``.
 
 Training: ``loss_fn`` is the reference's sequence-chunked cross entropy,
 each chunk's unembed under a checkpoint so that autograd keeps no chunk's
@@ -31,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -42,6 +48,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (dtype_of, embed_init, norm_apply,
                                        norm_init)
+from repro_torch.sharding.specs import psum
 
 Params = Dict[str, Any]
 
@@ -126,7 +133,7 @@ def attn_runs(cfg: ModelConfig):
 
 
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
-                theta, positions=None, mode: str = "train",
+                theta, ctx=None, positions=None, mode: str = "train",
                 cache: Optional[dict] = None, pos: Optional[int] = None):
     """One block. mode: train | prefill (full sequence) or decode (one
     token at ``pos``, the cache entry updated in place: keys and values
@@ -136,19 +143,24 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
     """
     nk, eps = _norm_kind(cfg), cfg.norm_eps
     h = norm_apply(p["norm1"], x, nk, eps)
+    shard = ctx.act_kv if ctx else None
+    layout = ctx.attn_layout(cfg.n_heads, cfg.n_kv_heads) if ctx \
+        else "grouped"
     new_cache: Dict[str, torch.Tensor] = {}
     if mode in ("train", "prefill"):
         a_out, (k, v) = attn.attn_forward(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, rope_theta=theta, positions=positions,
-            causal=not cfg.encoder_only, window=window)
+            causal=not cfg.encoder_only, window=window, shard=shard,
+            layout=layout, shard_qblocks=ctx.act_qblocks if ctx else None)
         if mode == "prefill":
             new_cache["k"], new_cache["v"] = k, v
     else:
         a_out, ck, cv = attn.attn_decode(
             p["attn"], h, cache["k"], cache["v"], pos=pos,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=theta, window=window)
+            head_dim=cfg.head_dim, rope_theta=theta, window=window,
+            shard=shard)
         new_cache["k"], new_cache["v"] = ck, cv
 
     if cfg.parallel_ssm:
@@ -168,14 +180,22 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
         a_out = 0.5 * (norm_apply(p["norm_attn_o"], a_out, nk, eps)
                        + norm_apply(p["norm_ssm_o"], s_out, nk, eps))
     x = x + a_out
+    if ctx:
+        x = ctx.act_btd(x)
 
     if cfg.moe is not None:
-        x = x + moe_mod.moe_ref(p["moe"], norm_apply(p["norm2"], x, nk, eps),
-                                cfg=cfg.moe, act=cfg.act)
+        h2 = norm_apply(p["norm2"], x, nk, eps)
+        x = x + (moe_mod.moe_forward(
+            p["moe"], h2, cfg=cfg.moe, act=cfg.act, mesh=ctx.mesh,
+            batch_axes=ctx.batch_axes, fsdp_axis=ctx.fsdp_axis or "data",
+            weight_stationary=ctx.moe_weight_stationary) if ctx else
+            moe_mod.moe_ref(p["moe"], h2, cfg=cfg.moe, act=cfg.act))
     elif cfg.d_ff:
         x = x + ffn_mod.ffn_forward(p["ffn"],
                                     norm_apply(p["norm2"], x, nk, eps),
-                                    cfg.act)
+                                    cfg.act, shard=ctx.act_ff if ctx else None)
+    if ctx:
+        x = ctx.act_btd(x)
     return x, (new_cache or None)
 
 
@@ -269,7 +289,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
 def _embed_in(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.embedding_inputs:
         return batch["embeds"]
-    return params["embed"][batch["tokens"]].to(dtype_of(cfg.dtype))
+    return embed_lookup(params["embed"], batch["tokens"]).to(
+        dtype_of(cfg.dtype))
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -282,7 +303,8 @@ def _stack_caches(caches: List[dict]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
+def forward(params: Params, batch, cfg: ModelConfig, ctx=None,
+            mode: str = "train"):
     """Full-sequence forward. Returns (h_final, aux): the pre-unembed hidden
     state, and in prefill mode the prompt's cache (None otherwise):
 
@@ -292,22 +314,24 @@ def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
     - ssm: None (decoding rebuilds the recurrent state step by step).
     """
     x = _embed_in(params, cfg, batch)
+    if ctx:
+        x = ctx.act_btd(x)
     positions = torch.arange(x.shape[1], device=x.device)
     collect = mode == "prefill"
     blk_mode = "prefill" if collect else "train"
 
     if cfg.family == "ssm":
-        x = _xlstm_stack(params, x, cfg)
+        x = _xlstm_stack(params, x, cfg, ctx)
         aux = None
     elif cfg.cross_attn_every:
-        x, aux = _vlm_stack(params, x, batch["vision_embeds"], cfg,
+        x, aux = _vlm_stack(params, x, batch["vision_embeds"], cfg, ctx,
                             positions, blk_mode)
     elif collect:
         aux = []
         for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
             caches = []
             for blk in run_p:
-                x, c = apply_block(blk, x, cfg, window=w, theta=th,
+                x, c = apply_block(blk, x, cfg, window=w, theta=th, ctx=ctx,
                                    positions=positions, mode=blk_mode)
                 caches.append(c)
             aux.append(_stack_caches(caches))
@@ -315,7 +339,7 @@ def forward(params: Params, batch, cfg: ModelConfig, mode: str = "train"):
         for run_p, (n, w, th) in zip(params["blocks"], attn_runs(cfg)):
             def body(xc, blk, _w=w, _th=th):
                 return apply_block(blk, xc, cfg, window=_w, theta=_th,
-                                   positions=positions)[0]
+                                   ctx=ctx, positions=positions)[0]
             x = _run_layers(body, x, run_p, cfg)
         aux = None
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
@@ -348,10 +372,10 @@ def _run_layers(body, x: torch.Tensor, blocks, cfg: ModelConfig,
     return x
 
 
-def _vlm_stack(params, x, vis, cfg, positions, blk_mode):
+def _vlm_stack(params, x, vis, cfg, ctx, positions, blk_mode):
     def body(xc, blk):
         return apply_block(blk, xc, cfg, window=0, theta=cfg.rope_theta,
-                           positions=positions)[0]
+                           ctx=ctx, positions=positions)[0]
 
     caches = []
     for blks, cross in zip(params["blocks"], params["cross"]):
@@ -361,31 +385,40 @@ def _vlm_stack(params, x, vis, cfg, positions, blk_mode):
             seg = []
             for blk in blks:
                 x, c = apply_block(blk, x, cfg, window=0,
-                                   theta=cfg.rope_theta,
+                                   theta=cfg.rope_theta, ctx=ctx,
                                    positions=positions, mode=blk_mode)
                 seg.append(c)
             caches.append(_stack_caches(seg))
         h = norm_apply(cross["norm"], x, "rms", cfg.norm_eps)
         c_out = attn.cross_attn_forward(
             cross["attn"], h, vis, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            shard=ctx.act_kv if ctx else None)
         x = x + torch.tanh(cross["gate"]).to(x.dtype) * c_out
     return x, (_stack_caches(caches) if caches else None)
 
 
-def _xlstm_stack(params, x, cfg):
+def _xlstm_stack(params, x, cfg, ctx=None):
     chunk = cfg.ssm.chunk if cfg.ssm else 128
 
     def m_body(xc, blk):
-        return xc + xlstm_mod.mlstm_forward(
+        y = xc + xlstm_mod.mlstm_forward(
             blk["m"], norm_apply(blk["norm"], xc, "rms", cfg.norm_eps),
             n_heads=cfg.n_heads, chunk=chunk)
+        return ctx.act_btd(y) if ctx else y
 
     for mblks, sblk in zip(params["mblocks"], params["sblocks"]):
         x = _run_layers(m_body, x, mblks, cfg, grouped=False)
-        x = x + xlstm_mod.slstm_forward(
-            sblk["s"], norm_apply(sblk["norm"], x, "rms", cfg.norm_eps),
-            n_heads=cfg.n_heads)
+        h_in = norm_apply(sblk["norm"], x, "rms", cfg.norm_eps)
+        if ctx is not None and ctx.slstm_local_grad:
+            h = xlstm_mod.slstm_forward_sharded(
+                sblk["s"], h_in, n_heads=cfg.n_heads, mesh=ctx.mesh,
+                batch_axes=ctx.batch_axes)
+        else:
+            h = xlstm_mod.slstm_forward(sblk["s"], h_in, n_heads=cfg.n_heads)
+        x = x + h
+        if ctx:
+            x = ctx.act_btd(x)
     return x
 
 
@@ -394,23 +427,100 @@ def _xlstm_stack(params, x, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_nll(w: torch.Tensor, h: torch.Tensor, lab: torch.Tensor):
+def _slice_index(mesh, split) -> int:
+    """This rank's index among the slices of a dim split (evenly, major
+    mesh dim first) over the mesh dims where ``split`` is true."""
+    coord, j = mesh.get_coordinate(), 0
+    for i, s in enumerate(split):
+        if s:
+            j = j * mesh.size(i) + coord[i]
+    return j
+
+
+def embed_lookup(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """w[tokens]: the (V, D) table's rows at integer tokens.
+
+    On a DTensor table the vocab keeps its split and the rest of the table
+    is gathered (FSDP); each rank looks up the tokens inside its vocab
+    slice, zero elsewhere, and the slices are summed over the axes that
+    split the vocab (exact: one term is not zero). The output is laid out
+    as the tokens, D whole. (DTensor's own rule leaves a masked partial
+    that some versions cannot reduce.)"""
+    if not isinstance(w, DTensor):
+        return F.embedding(tokens, w)
+    mesh = w.device_mesh
+    wpl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in w.placements]
+    split = [isinstance(p, Shard) for p in wpl]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tpl = [Replicate() if s else p for p, s in zip(tokens.placements, split)]
+    # the table's gradient: its own vocab slice where the vocab is split;
+    # a part from each rank's tokens where the tokens are split
+    gpl = [Shard(0) if s else (Partial() if isinstance(p, Shard) else p)
+           for p, s in zip(tpl, split)]
+    wl = w.redistribute(mesh, wpl).to_local(grad_placements=gpl)
+    tl = tokens.redistribute(mesh, tpl).to_local()
+    n = wl.shape[0]
+    idx = tl - _slice_index(mesh, split) * n
+    inside = (idx >= 0) & (idx < n)
+    out = F.embedding(idx.clamp(0, n - 1), wl)
+    out = torch.where(inside[..., None], out, 0.0)
+    out = psum(out, mesh, [a for a, s in zip(mesh.mesh_dim_names, split)
+                           if s])
+    return DTensor.from_local(out, mesh, tpl, run_check=False)
+
+
+def _label_logit(logits: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """logits[..., lab]: (B, c, V) at labels (B, c).
+
+    DTensor's rule for ``gather`` along a sharded vocab fails here, so on a
+    DTensor each rank takes the labels inside its vocab slice from its
+    local shard, zero elsewhere, and the slices are summed over the axes
+    that split the vocab (exact: one term is not zero)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, lab[..., None])[..., 0]
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    split = [isinstance(p, Shard) and p.dim == last for p in pl]
+    out_pl = [Replicate() if s else p for p, s in zip(pl, split)]
+    lg = logits.redistribute(mesh, pl).to_local()
+    if not isinstance(lab, DTensor):
+        lab = DTensor.from_local(lab, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    lb = lab.redistribute(mesh, out_pl).to_local()
+    n = lg.shape[-1]
+    idx = lb - _slice_index(mesh, split) * n
+    inside = (idx >= 0) & (idx < n)
+    val = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])
+    val = torch.where(inside, val[..., 0], 0.0)
+    val = psum(val, mesh, [a for a, s in zip(mesh.mesh_dim_names, split)
+                           if s])
+    return DTensor.from_local(val, mesh, out_pl, run_check=False)
+
+
+def _chunk_nll(w: torch.Tensor, h: torch.Tensor, lab: torch.Tensor,
+               ctx=None):
     """Summed negative log-likelihood and the count of unmasked positions
     of one chunk: h (B, c, D) against the unembedding w (V, D); labels < 0
     are masked."""
-    logits = (h @ w.to(h.dtype).T).float()
+    logits = h @ w.to(h.dtype).T
+    if ctx:
+        logits = ctx.act_logits(logits)
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+    ll = _label_logit(logits, torch.clamp(lab, min=0))
     mask = (lab >= 0).float()
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def loss_fn(params: Params, batch, cfg: ModelConfig,
+def loss_fn(params: Params, batch, cfg: ModelConfig, ctx=None,
             ce_chunk: int = 1024) -> torch.Tensor:
     """Next-token cross entropy (every position for an encoder-only arch)
     with the unembed chunked along the sequence: ``ce_chunk`` positions at
     a time, the last chunk padded with label -1 (masked)."""
-    h, _ = forward(params, batch, cfg, mode="train")
+    h, _ = forward(params, batch, cfg, ctx, mode="train")
     if cfg.encoder_only:
         h_in, lab = h, batch["labels"]
     else:
@@ -420,14 +530,16 @@ def loss_fn(params: Params, batch, cfg: ModelConfig,
     lab = lab.long()
     S = h_in.shape[1]
     ce_chunk = min(ce_chunk, S)
-    pad = (-S) % ce_chunk
+    # the last chunk is padded with masked positions; on a DTensor it is
+    # cut short instead (the padded rows add nothing to either sum)
+    pad = 0 if isinstance(h_in, DTensor) else (-S) % ce_chunk
     if pad:
         h_in = F.pad(h_in, (0, 0, 0, pad))
         lab = F.pad(lab, (0, pad), value=-1)
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    nll = _chunk_nll
+    nll = functools.partial(_chunk_nll, ctx=ctx)
     if torch.is_grad_enabled():
-        nll = _checkpointed(_chunk_nll)
+        nll = _checkpointed(nll)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, S + pad, ce_chunk):
@@ -436,7 +548,8 @@ def loss_fn(params: Params, batch, cfg: ModelConfig,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def logits_fn(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:
+def logits_fn(params: Params, batch, cfg: ModelConfig, ctx=None
+              ) -> torch.Tensor:
     """Full logits (B, S, V) (for tests / small-scale evaluation)."""
-    h, _ = forward(params, batch, cfg, mode="train")
+    h, _ = forward(params, batch, cfg, ctx, mode="train")
     return _unembed(params, cfg, h)

@@ -3,9 +3,12 @@ gating) and sequential sLSTM (scalar memory, head-wise recurrence).
 
 Port of ``repro.models.xlstm`` (the chunkwise form is written out there).
 Every exponent is clipped before ``exp`` exactly as the reference clips it,
-so the -1e30 initial stabilisers and padding never overflow. The sharded
-sLSTM with its custom backward (``slstm_forward_sharded``) needs a mesh and
-waits for the sharding slice (ROADMAP.md queue 1, item 11).
+so the -1e30 initial stabilisers and padding never overflow. Over a mesh,
+``slstm_forward_sharded`` runs the recurrence on each rank's batch rows
+with a backward that accumulates the weight gradients locally and reduces
+them once at the end (the reference's custom VJP). DTensor has no sharding
+rule for ``logsigmoid``'s backward: the forget gate's ``logsigmoid`` runs
+on the local shards (``local_map``).
 """
 from __future__ import annotations
 
@@ -13,9 +16,15 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.specs import (P, axis_sizes, done, group,
+                                       merge_last, on_batch_head_shards,
+                                       placements, split_last, to_local)
 
 _CLIP = 80.0
 _NEG = -1e30
@@ -65,15 +74,25 @@ def mlstm_init_state(batch: int, n_heads: int, head_dim: int,
         m=torch.full((batch, n_heads), _NEG, dtype=f32, device=device))
 
 
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``, elementwise on each rank's shard of a DTensor."""
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(F.logsigmoid, out_placements=pl, in_placements=(pl,),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
 def _qkv_gates(params, x: torch.Tensor, n_heads: int):
     B, T, D = x.shape
     hd = D // n_heads
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, T, n_heads, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, T, n_heads, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, T, n_heads, hd)
+    q = split_last(x @ params["wq"].to(x.dtype), n_heads, hd)
+    k = split_last(x @ params["wk"].to(x.dtype), n_heads, hd)
+    v = split_last(x @ params["wv"].to(x.dtype), n_heads, hd)
     x32 = x.float()
     li = x32 @ params["w_ig"] + params["b_ig"]                  # (B,T,H)
-    lf = F.logsigmoid(x32 @ params["w_fg"] + params["b_fg"])
+    lf = _logsigmoid(x32 @ params["w_fg"] + params["b_fg"])
     og = torch.sigmoid(x @ params["wog"].to(x.dtype))           # (B,T,D)
     return q, k, v, li, lf, og
 
@@ -82,17 +101,26 @@ def mlstm_forward(params, x: torch.Tensor, *, n_heads: int,
                   chunk: int = 128) -> torch.Tensor:
     """Full-sequence chunkwise mLSTM. x: (B, T, D) -> (B, T, D)."""
     B, T, D = x.shape
-    hd = D // n_heads
-    scale = 1.0 / math.sqrt(hd)
     q, k, v, li, lf, og = _qkv_gates(params, x, n_heads)
+    h = on_batch_head_shards(_mlstm_chunks, q, k, v, li, lf, chunk=chunk)
+    h = merge_last(h, 2).to(x.dtype) * og
+    return h @ params["wo"].to(x.dtype)
+
+
+def _mlstm_chunks(q, k, v, li, lf, *, chunk: int) -> torch.Tensor:
+    """The chunkwise recurrence: q, k, v (B, T, H, d), log gates li, lf
+    (B, T, H) -> h (B, T, H, d) in float32. Each (batch row, head) is
+    independent."""
+    B, T, n_heads, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
     L = min(chunk, T)
     pad = (-T) % L
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         li = F.pad(li, (0, 0, 0, pad), value=_NEG)
         lf = F.pad(lf, (0, 0, 0, pad))
-    c0, n0, m0 = mlstm_init_state(B, n_heads, hd, device=x.device)
-    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    c0, n0, m0 = mlstm_init_state(B, n_heads, hd, device=q.device)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
     hs = []
     for s in range(0, T + pad, L):
         qf = q[:, s:s + L].float() * scale
@@ -123,9 +151,7 @@ def mlstm_forward(params, x: torch.Tensor, *, n_heads: int,
         n0 = torch.einsum("bshd,bsh->bhd", kf, wk_coef) \
             + i_coef[..., None] * n0
         m0 = b[:, -1] + AL
-    h = torch.cat(hs, dim=1).reshape(B, T + pad, D)[:, :T]
-    h = h.to(x.dtype) * og
-    return h @ params["wo"].to(x.dtype)
+    return torch.cat(hs, dim=1)[:, :T]
 
 
 def mlstm_step(params, x: torch.Tensor, state: MLSTMState, *,
@@ -147,7 +173,7 @@ def mlstm_step(params, x: torch.Tensor, state: MLSTMState, *,
     qn = torch.abs(torch.einsum("bhd,bhd->bh", qf, n))
     denom = torch.maximum(qn, _exp_neg(m_new))
     h = torch.einsum("bhd,bhde->bhe", qf, c) / denom[..., None]
-    h = h.reshape(B, 1, D).to(x.dtype) * og
+    h = merge_last(h, 2)[:, None].to(x.dtype) * og
     return h @ params["wo"].to(x.dtype), MLSTMState(c, n, m_new)
 
 
@@ -200,7 +226,7 @@ def _slstm_cell(params, x_t: torch.Tensor, st: SLSTMState, n_heads: int
     B, D = x_t.shape
     hd = D // n_heads
     wx = (x_t @ params["w"].to(x_t.dtype)).float() + params["b"]
-    wx = wx.reshape(B, 4, n_heads, hd)
+    wx = split_last(wx, 4, n_heads, hd)
     rh = torch.einsum("bhd,ghde->bghe", st.h, params["r"].float())
     it, ft, zt, ot = (wx[:, g] + rh[:, g] for g in range(4))
     m_new = torch.maximum(ft + st.m, it)
@@ -220,7 +246,7 @@ def slstm_forward(params, x: torch.Tensor, *, n_heads: int) -> torch.Tensor:
     for t in range(T):
         st = _slstm_cell(params, x[:, t], st, n_heads)
         hs.append(st.h)
-    h = torch.stack(hs, dim=1).reshape(B, T, D).to(x.dtype)
+    h = merge_last(torch.stack(hs, dim=1), 2).to(x.dtype)
     return h @ params["wo"].to(x.dtype)
 
 
@@ -228,5 +254,109 @@ def slstm_step(params, x: torch.Tensor, st: SLSTMState, *, n_heads: int):
     """x: (B, 1, D). Returns (y, the new state)."""
     B, _, D = x.shape
     st = _slstm_cell(params, x[:, 0], st, n_heads)
-    h = st.h.reshape(B, 1, D).to(x.dtype)
+    h = merge_last(st.h, 2)[:, None].to(x.dtype)
     return h @ params["wo"].to(x.dtype), st
+
+
+# ---------------------------------------------------------------------------
+# sLSTM with locally-accumulated recurrent-weight gradients
+# ---------------------------------------------------------------------------
+#
+# Differentiating the time loop on DTensors reduces dR/dW across the batch
+# shards at EVERY timestep. Here the whole recurrence runs on each rank's
+# batch rows (the reference's shard_map body): the backward loop
+# accumulates the weight gradients locally (per-step autograd of the local
+# cell, correct by construction), and ONE all-reduce of all of them at the
+# end sums across the batch shards.
+
+
+def slstm_forward_sharded(params, x: torch.Tensor, *, n_heads: int, mesh,
+                          batch_axes) -> torch.Tensor:
+    """``slstm_forward`` over a mesh, x (B, T, D) split over
+    ``batch_axes``; the weights ``w``, ``r``, ``b`` are gathered whole."""
+    axes = tuple(batch_axes)
+    xspec = P(axes, None, None)
+    w = to_local(params["w"], mesh, P(None, None), partial_grad=False)
+    r = to_local(params["r"], mesh, P(None, None, None, None),
+                 partial_grad=False)
+    b = to_local(params["b"], mesh, P(None), partial_grad=False)
+    plain = not isinstance(x, DTensor)
+    x_loc = to_local(x, mesh, xspec, partial_grad=False)
+    h = _SLSTMLocalGrad.apply(w, r, b, x_loc, n_heads, mesh, axes)
+    h = DTensor.from_local(h, mesh, placements(mesh, xspec),
+                           run_check=False)
+    if plain:
+        h = h.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return h @ params["wo"].to(x.dtype)
+
+
+def _slstm_scan(rwb, x: torch.Tensor, n_heads: int):
+    """The local recurrence: (h (B, T, D) in x's dtype, the state after
+    each step)."""
+    B, T, D = x.shape
+    st = slstm_init_state(B, n_heads, D // n_heads, device=x.device)
+    traj = []
+    for t in range(T):
+        st = _slstm_cell(rwb, x[:, t], st, n_heads)
+        traj.append(st)
+    h = torch.stack([s.h for s in traj], dim=1).reshape(B, T, D)
+    return h.to(x.dtype), traj
+
+
+class _SLSTMLocalGrad(torch.autograd.Function):
+    """The sLSTM time loop on local rows: the forward keeps each step's
+    state; the backward runs the loop in reverse, one cell's autograd a
+    step, sums the weight gradients in float32 and all-reduces them once
+    over the batch axes."""
+
+    @staticmethod
+    def forward(ctx, w, r, b, x, n_heads, mesh, axes):
+        with torch.no_grad():
+            h, traj = _slstm_scan({"w": w, "r": r, "b": b}, x, n_heads)
+        ctx.n_heads, ctx.mesh, ctx.axes = n_heads, mesh, axes
+        ctx.traj = traj
+        ctx.save_for_backward(w, r, b, x)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        w, r, b, x = ctx.saved_tensors
+        n_heads, traj = ctx.n_heads, ctx.traj
+        B, T, D = x.shape
+        hd = D // n_heads
+        st0 = slstm_init_state(B, n_heads, hd, device=x.device)
+        g_h = g.reshape(B, T, n_heads, hd).float()
+        d_rwb = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in (w, r, b)]
+        dst = [torch.zeros((B, n_heads, hd), dtype=torch.float32,
+                           device=x.device) for _ in range(4)]
+        dx = torch.empty_like(x)
+        for t in reversed(range(T)):
+            prev = traj[t - 1] if t else st0
+            with torch.enable_grad():
+                ins = [p.detach().requires_grad_(True) for p in (w, r, b)]
+                x_t = x[:, t].detach().requires_grad_(True)
+                st_in = [s.detach().requires_grad_(True) for s in prev]
+                out = _slstm_cell({"w": ins[0], "r": ins[1], "b": ins[2]},
+                                  x_t, SLSTMState(*st_in), n_heads)
+                douts = (dst[0], dst[1], dst[2], dst[3] + g_h[:, t])
+                grads = torch.autograd.grad(out, ins + [x_t] + st_in,
+                                            douts, allow_unused=True,
+                                            materialize_grads=True)
+            for acc, gr in zip(d_rwb, grads[:3]):
+                acc += gr.float()
+            dx[:, t] = grads[3]
+            dst = [gr.float() for gr in grads[4:]]
+        # ONE cross-shard reduction instead of one per timestep
+        flat = torch.cat([d.reshape(-1) for d in d_rwb])
+        for a in ctx.axes:
+            if axis_sizes(ctx.mesh)[a] > 1:
+                flat = done(funcol.all_reduce(flat, "sum",
+                                              group(ctx.mesh, a)))
+        outs, off = [], 0
+        for p in (w, r, b):
+            outs.append(flat[off:off + p.numel()].reshape(p.shape)
+                        .to(p.dtype))
+            off += p.numel()
+        del ctx.traj
+        return outs[0], outs[1], outs[2], dx, None, None, None

@@ -484,12 +484,15 @@ class EngineGroup:
     def from_mesh(cls, server, mesh, *, axis: str = "data",
                   routing=RoutingPolicy.LEAST_LOADED, delay=None,
                   **knobs) -> "EngineGroup":
-        """One replica per slice of ``mesh`` along ``axis``. Needs the
-        port of ``sharding/specs.py`` (ROADMAP queue 1, item 11), which
-        maps a mesh to torch device groups; until then it raises."""
-        raise NotImplementedError(
-            "EngineGroup.from_mesh needs the port of sharding/specs.py "
-            "(ROADMAP queue 1, item 11); pass devices=[...] or replicas=N")
+        """One replica per slice of ``mesh`` (a torch ``DeviceMesh``)
+        along ``axis`` (see
+        :func:`repro_torch.sharding.specs.replica_device_groups`); the
+        devices of each slice round-robin within the replica."""
+        from repro_torch.sharding.specs import replica_device_groups
+        groups = replica_device_groups(mesh, axis=axis)
+        return cls([Replica(i, server, devices=g)
+                    for i, g in enumerate(groups)],
+                   routing=routing, delay=delay, **knobs)
 
     # -- host-side prepare (replica-agnostic) --------------------------------
     def prepare_batch(self, requests):

@@ -64,9 +64,9 @@ class ServeConfig:
                         (``True`` = engine default; ``False`` = skip).
 
     Replica topology (first non-default wins: mesh > devices > replicas):
-      ``mesh``/``mesh_axis`` — one replica per mesh slice along the axis;
-                        raises until ``sharding/specs.py`` is ported
-                        (ROADMAP queue 1, item 11).
+      ``mesh``/``mesh_axis`` — one replica per slice of a torch
+                        ``DeviceMesh`` along the axis (``launch.mesh``
+                        makes one).
       ``devices``     — one replica pinned per listed device
                         (``torch.device`` or its spelling); the
                         ``LMServer`` is built on the first.

@@ -13,15 +13,17 @@ tensors:
     ...all-reduce q (int32-accumulate)...
     grads = decompress(q_sum, scales_mean)
 
-``allreduce_compressed`` needs a process group and waits for the sharding
-slice (ROADMAP.md queue 1, item 11).
+``allreduce_compressed`` is the reference's body for inside ``shard_map``:
+it sums the int8 payloads as int32 over one named axis of a mesh.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 
+from repro_torch.sharding.specs import axis_sizes, done, group
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
@@ -66,10 +68,19 @@ def decompress(q, scales):
     return tree_map(lambda qq: qq.float() * next(flat), q)
 
 
-def allreduce_compressed(grads, state: EFState, group=None):
-    """Quantise, sum the int8 payloads as int32 across ``group``, dequantise
-    with the mean scale; returns (mean grads, new state). Needs the port of
-    the sharding slice."""
-    raise NotImplementedError(
-        "allreduce_compressed needs a process group from the port of "
-        "sharding/specs.py and launch/ (ROADMAP queue 1, item 11)")
+def allreduce_compressed(grads, state: EFState, mesh, axis_name: str):
+    """Each rank's local grads (plain tensors): quantise, sum the payloads
+    as int32 over the mesh axis ``axis_name``, dequantise with the mean
+    scale. Returns (mean grads, new state)."""
+    q, scales, state = compress(grads, state)
+    n = axis_sizes(mesh)[axis_name]
+    grp = group(mesh, axis_name)
+
+    def psum(t):
+        return done(funcol.all_reduce(t, "sum", grp)) if n > 1 else t
+
+    q_sum = tree_map(lambda qq: psum(qq.to(torch.int32)), q)
+    s_mean = tree_map(lambda s: psum(s) / n, scales)
+    flat = iter(tree_leaves(s_mean))
+    g = tree_map(lambda qq: qq.float() * next(flat) / n, q_sum)
+    return g, state

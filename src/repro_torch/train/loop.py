@@ -3,10 +3,11 @@ async checkpointing + failure handling (restart from the last checkpoint) +
 straggler policy.
 
 Port of ``repro.train.loop``. ``fit`` runs on ``device`` (the card unless
-the caller asks for the CPU); without a sharding context it goes through
-``_local_step``, eager autograd and the in-place ``AdamW.update``. The
-sharded step (``ctx``) needs the port of the sharding slice (ROADMAP.md
-queue 1, item 11).
+the caller asks for the CPU): eager autograd and the in-place
+``AdamW.update``, through ``_local_step`` without a sharding context, and
+through ``launch.steps.build_train_step`` with one (``ctx``), its
+parameters, optimizer state and batches placed as DTensors on
+``ctx.mesh`` by the sharding policy.
 """
 from __future__ import annotations
 
@@ -22,7 +23,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.device import resolve_device
 from repro_torch.ft.failures import FailureInjector, StragglerPolicy
+from repro_torch.launch.steps import (_grads, build_train_step, place,
+                                      opt_state_shardings)
 from repro_torch.models.registry import Model, build_model
+from repro_torch.sharding.specs import param_shardings
 from repro_torch.train.optimizer import AdamW, tree_leaves, tree_map
 
 
@@ -80,24 +84,33 @@ def make_optimizer(cfg: ModelConfig, tc: TrainConfig) -> AdamW:
 def fit(cfg: ModelConfig, tc: TrainConfig, *, ctx=None,
         injector: Optional[FailureInjector] = None,
         log: Callable[[str], None] = print, device="cuda") -> TrainResult:
-    if ctx is not None:
-        raise NotImplementedError(
-            "fit(ctx=...) needs build_train_step from the port of launch/ "
-            "and sharding/ (ROADMAP queue 1, item 11)")
     dev = resolve_device(device)
-    model = build_model(cfg)
+    model = build_model(cfg, ctx)
     opt = make_optimizer(cfg, tc)
-    step_fn = _local_step(model, opt, tc.microbatches)
+    step_fn = build_train_step(model, ctx, opt, tc.microbatches) if ctx \
+        else _local_step(model, opt, tc.microbatches)
+    pshard = oshard = None
+    if ctx is not None:
+        pshard = param_shardings(model.init(device="meta"), cfg, ctx)
+        oshard = opt_state_shardings(pshard, ctx.mesh)
 
     def fresh():
         gen = torch.Generator(device=dev).manual_seed(tc.seed)
         p = model.init(gen, device=dev)
+        if ctx is not None:
+            p = place(p, pshard)
         return p, opt.init(p)
 
     def restored(last):
         tree = {"params": params, "opt": opt_state}
-        r = store.restore(tc.ckpt_dir, last, tree, device=dev)
+        shardings = None if ctx is None else \
+            {"params": pshard, "opt": oshard}
+        r = store.restore(tc.ckpt_dir, last, tree, shardings, device=dev)
         return r["params"], r["opt"]
+
+    def to_device(batch):
+        b = batch_to_device(batch, dev)
+        return b if ctx is None else place(b, ctx.batch_spec(b))
 
     params, opt_state = fresh()
     start = 0
@@ -142,8 +155,8 @@ def fit(cfg: ModelConfig, tc: TrainConfig, *, ctx=None,
             if got_step != step:
                 raise RuntimeError(f"prefetcher at step {got_step}, the "
                                    f"loop at {step}")
-            params, opt_state, metrics = step_fn(
-                params, opt_state, batch_to_device(batch, dev))
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 to_device(batch))
             loss = float(metrics["loss"])
             gnorms.append(float(metrics["grad_norm"]))
             dt = time.perf_counter() - t0
@@ -164,20 +177,6 @@ def fit(cfg: ModelConfig, tc: TrainConfig, *, ctx=None,
     return TrainResult(losses=losses, steps_done=step, restarts=restarts,
                        step_times=times, grad_norms=gnorms, params=params,
                        opt_state=opt_state)
-
-
-def _grads(model: Model, params, leaves: List[torch.Tensor], batch):
-    """(loss, float32 grads of ``leaves``); each leaf's own-dtype grad is
-    freed as soon as its float32 copy exists."""
-    for p in leaves:
-        p.requires_grad_(True)
-    with torch.enable_grad():
-        loss = model.loss(params, batch)
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
-    for i, g in enumerate(grads):
-        grads[i] = g.float()
-    return loss.detach(), grads
 
 
 def _local_step(model: Model, opt: AdamW, n_mb: int):

@@ -12,7 +12,9 @@ The update runs in place on the parameter and state tensors, under
 donated buffers, so that a step holds no second copy of the parameters and
 moments. Trees are nested dicts and lists of tensors (the port's parameter
 layout); ``grads`` has the parameters' structure and may be in any float
-dtype.
+dtype. Leaves may be DTensors: the moments take each parameter's
+placements, the update runs on the local shards, and the global norm is a
+full reduction (the unsharded norm).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from dataclasses import dataclass
 from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.sharding.specs import implicit_replication
 
 
 class AdamWState(NamedTuple):
@@ -77,8 +81,7 @@ class AdamW:
     def init(self, params) -> AdamWState:
         leaves = tree_leaves(params)
         dev = leaves[0].device if leaves else torch.device("cpu")
-        z = lambda p: torch.zeros(p.shape, dtype=self.state_dtype,  # noqa
-                                  device=p.device)
+        z = lambda p: torch.zeros_like(p, dtype=self.state_dtype)  # noqa
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           mu=tree_map(z, params), nu=tree_map(z, params))
 
@@ -89,6 +92,10 @@ class AdamW:
         parameter and moment tensors, updated, a new step counter, and the
         global norm of ``grads`` before clipping (float32 scalar).
         ``grads``' float32 leaves are scaled in place by the clipping."""
+        with implicit_replication():
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state: AdamWState, params):
         g32 = [g.float() for g in tree_leaves(grads)]
         gnorm = torch.sqrt(torch.stack([g.square().sum() for g in g32]).sum())
         if self.clip_norm is not None:

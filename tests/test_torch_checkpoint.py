@@ -114,9 +114,27 @@ def test_async_snapshot_is_taken_before_return(tmp_path, monkeypatch):
 
 
 def test_restore_with_shardings_names_the_roadmap(tmp_path):
-    store.save(tmp_path, 1, {"a": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        store.restore(tmp_path, 1, {"a": torch.ones(2)}, shardings={"a": 0})
+    """``restore(shardings=...)``: each leaf comes back a DTensor laid out
+    as its sharding, on a one-rank (1, 1) mesh here (4 ranks and a re-mesh:
+    ``tests/test_torch_dist.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.sharding.specs import NamedSharding, P
+    t = {"a": torch.arange(6.0).reshape(2, 3), "b": [torch.ones(4)]}
+    store.save(tmp_path / "ck", 1, t)
+    init_distributed("cpu", init_method=f"file://{tmp_path}/store")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        sh = {"a": NamedSharding(mesh, P("data", "model")),
+              "b": [NamedSharding(mesh, P(None))]}
+        r = store.restore(tmp_path / "ck", 1, t, shardings=sh)
+        assert isinstance(r["a"], DTensor) and isinstance(r["b"][0], DTensor)
+        assert list(r["a"].placements) == sh["a"].placements
+        assert torch.equal(r["a"].full_tensor(), t["a"])
+        assert torch.equal(r["b"][0].full_tensor(), t["b"][0])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_optimizer_state_keys_follow_the_reference(tmp_path):

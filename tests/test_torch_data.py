@@ -93,7 +93,30 @@ def test_grad_compress_matches_reference():
                                    np.asarray(j_back["w"]), atol=1e-7)
 
 
-def test_allreduce_compressed_names_the_roadmap():
-    g = {"w": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        gc.allreduce_compressed(g, gc.init(g))
+def test_allreduce_compressed_names_the_roadmap(tmp_path):
+    """``allreduce_compressed`` over a one-rank axis: the reference's
+    quantise / sum / mean-scale arithmetic with n = 1, and its error
+    feedback (4 ranks: ``tests/test_torch_dist.py``)."""
+    import jax
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    rng = np.random.default_rng(5)
+    g_np = {"w": rng.standard_normal((3, 5)).astype(np.float32)}
+    init_distributed("cpu", init_method=f"file://{tmp_path}/store")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        g = {"w": torch.tensor(g_np["w"])}
+        st, j_st = gc.init(g), j_gc.init(g_np)
+        for _ in range(2):
+            out, st = gc.allreduce_compressed(g, st, mesh, "data")
+            jq, js, j_st = j_gc.compress(
+                jax.tree_util.tree_map(jnp.asarray, g_np), j_st)
+            want = np.asarray(jq["w"], np.int32).astype(np.float32) \
+                * np.asarray(js["w"], np.float32)
+            np.testing.assert_allclose(out["w"].numpy(), want, rtol=1e-6,
+                                       atol=1e-7)
+            np.testing.assert_allclose(st.residual["w"].numpy(),
+                                       np.asarray(j_st.residual["w"]),
+                                       atol=1e-7)
+    finally:
+        dist.destroy_process_group()

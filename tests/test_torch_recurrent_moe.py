@@ -6,8 +6,8 @@ the JAX package on the same parameters (the reference's own initialised
 ones, carried across as float32 numpy) and the same numpy inputs.
 
 The sharded sLSTM with its custom backward (``slstm_forward_sharded``,
-``test_slstm_local_grad_matches_plain``) needs a mesh and waits for the
-sharding slice (ROADMAP.md queue 1, item 11).
+``test_slstm_local_grad_matches_plain``) and ``moe_forward`` over a mesh
+run on 4 ranks in ``tests/test_torch_dist.py``.
 
 Tolerances: the reference tests' own between a chunkwise form and its
 oracle; ``atol = rtol = 1e-4`` port against reference in float32 (the same

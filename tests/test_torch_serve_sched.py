@@ -7,8 +7,8 @@ JAX package: one ``serve()`` end to end on the reduced float32
 reference's tokens and drops the reference's requests, exactly.
 
 The reference's multi-device case runs here on two spellings of the CPU
-device; its mesh cases wait for the port of ``sharding/specs.py`` (ROADMAP
-queue 1, item 11).
+device; its mesh cases run on one CPU rank here and on a 4-rank mesh in
+``tests/test_torch_dist.py``.
 """
 import dataclasses
 
@@ -454,12 +454,25 @@ def test_params_copied_once_per_device_under_contention(monkeypatch):
     assert len({id(g) for g in got}) == 2
 
 
-def test_mesh_waits_for_the_sharding_port():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        EngineGroup.from_mesh(SimServer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build(ServeConfig(model="llama3.2-3b", device="cpu", max_seq=16,
-                          mesh=object()))
+def test_mesh_waits_for_the_sharding_port(tmp_path):
+    """``EngineGroup.from_mesh`` and ``ServeConfig.mesh`` on a one-rank
+    (1, 1) CPU mesh: one replica on the CPU; an axis the mesh lacks is an
+    error."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    init_distributed("cpu", init_method=f"file://{tmp_path}/store")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        group = EngineGroup.from_mesh(SimServer(), mesh)
+        assert len(group.replicas) == 1
+        assert [str(d) for d in group.replicas[0].devices] == ["cpu"]
+        with pytest.raises(ValueError, match="axis"):
+            EngineGroup.from_mesh(SimServer(), mesh, axis="pod")
+        srv = build(ServeConfig(model="llama3.2-3b", reduced=True,
+                                device="cpu", max_seq=16, mesh=mesh))
+        assert len(srv.group.replicas) == 1
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -172,10 +172,31 @@ def test_fit_on_cuda_without_card_raises():
         fit(cfg, TrainConfig(steps=1), log=lambda s: None)
 
 
-def test_fit_with_ctx_names_the_roadmap():
-    cfg = get_config("llama3.2-3b").reduced()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit(cfg, TrainConfig(steps=1), ctx=object(), **CPU)
+def test_fit_with_ctx_names_the_roadmap(tmp_path):
+    """``fit(ctx=...)`` through ``build_train_step`` on a one-rank (1, 1)
+    CPU mesh: the parameters become DTensors, and the losses and grad
+    norms equal ``fit`` without a context (float32, 1e-5; 4 ranks:
+    ``tests/test_torch_dist.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.steps import make_ctx
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              dtype="float32", param_dtype="float32",
+                              n_layers=2)
+    tc = TrainConfig(steps=2, batch=2, seq_len=16, microbatches=2)
+    plain = fit(cfg, tc, **CPU)
+    init_distributed("cpu", init_method=f"file://{tmp_path}/store")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        res = fit(cfg, tc, ctx=make_ctx(mesh, None, cfg), **CPU)
+        assert all(isinstance(p, DTensor) for p in tree_leaves(res.params))
+        np.testing.assert_allclose(res.losses, plain.losses, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(res.grad_norms, plain.grad_norms,
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_fit_float32_and_bf16_state_configs():
