@@ -10,7 +10,10 @@ The sweeps' parameters are those of ``benchmarks/fig13_endtoend.py`` and
 ``benchmarks/fig14_capacity.py``, written out here (those harnesses import
 the JAX package). The capacity sweep runs at fig 14's ``--smoke`` size, the
 size of the committed baseline's capacity section; the cache sweep runs
-the one Zipf skew the baseline holds (1.1).
+the one Zipf skew the baseline holds (1.1). ``cache_sweep`` and
+``capacity_sweep`` take their grids as keyword arguments:
+``torch_fig13_endtoend.py`` and ``torch_fig14_capacity.py`` call them with
+the reference's full grids.
 
     PYTHONPATH=src python3 benchmarks/torch_serve_sim.py [--out PATH]
     PYTHONPATH=src python3 benchmarks/torch_serve_sim.py --against-reference
@@ -66,6 +69,7 @@ CAPACITY_BATCH_GRID = (4, 32)
 CAPACITY_REPLICAS = 4
 CAPACITY_MAX_QUEUE = 64
 CAPACITY_SCALE = 0.25
+CAPACITY_WINDOW_S = 0.05
 CAPACITY_PHASES = {
     "weak_host": [(0.6, 800.0), (1.2, 2400.0), (0.6, 1600.0)],
     "balanced": [(0.6, 1000.0), (1.2, 3000.0), (0.6, 2000.0)],
@@ -111,7 +115,7 @@ def replica_sweep(pkg: str, results: list) -> None:
              host_cap_qps=host_cap_qps)
 
 
-def cache_sweep(pkg: str, results: list) -> list:
+def cache_sweep(pkg: str, results: list, *, alphas=CACHE_ALPHAS) -> list:
     """Two waves of one Zipf key population, cache off and on."""
     serve = importlib.import_module(f"{pkg}.serve")
     CacheConfig, ServeConfig = serve.CacheConfig, serve.ServeConfig
@@ -120,7 +124,7 @@ def cache_sweep(pkg: str, results: list) -> list:
     n = SIM_N_BATCHES * TARGET_BATCH
     host_cap_qps = 1e3 / SIM_HOST_MS * TARGET_BATCH
     points = []
-    for alpha in CACHE_ALPHAS:
+    for alpha in alphas:
         for cached in (False, True):
             srv = build(ServeConfig(
                 replicas=CACHE_REPLICAS, routing="least_loaded",
@@ -208,8 +212,12 @@ def routing_sweep(pkg: str, results: list) -> list:
     return points
 
 
-def capacity_sweep(pkg: str, results: list) -> list:
-    """Static batch targets against the controller under phased load."""
+def capacity_sweep(pkg: str, results: list, *, grid=CAPACITY_BATCH_GRID,
+                   scale=CAPACITY_SCALE, window_s=CAPACITY_WINDOW_S
+                   ) -> list:
+    """Static batch targets against the controller under phased load;
+    fig 14's full size is ``grid=(4, 8, 16, 32), scale=1.0,
+    window_s=0.1``."""
     capacity = importlib.import_module(f"{pkg}.capacity")
     CapacityConfig, CostReport = capacity.CapacityConfig, capacity.CostReport
     serve = importlib.import_module(f"{pkg}.serve")
@@ -233,13 +241,12 @@ def capacity_sweep(pkg: str, results: list) -> list:
         return len(outs) / dt, sched.report(offered_qps=gen.mean_qps)
 
     report, points = CostReport(), []
-    grid = CAPACITY_BATCH_GRID
     for profile in ("weak_host", "balanced"):
-        phases = [(d * CAPACITY_SCALE, q) for d, q in CAPACITY_PHASES[profile]]
+        phases = [(d * scale, q) for d, q in CAPACITY_PHASES[profile]]
         workload = SyntheticWorkload(prompt_len=8, max_new_tokens=4, seed=3)
         static = {tb: drive(profile, tb)[0] for tb in grid}
         best_tb = max(static, key=static.get)
-        cap = CapacityConfig(window_s=0.05, confirm=2, min_batch=grid[0],
+        cap = CapacityConfig(window_s=window_s, confirm=2, min_batch=grid[0],
                              max_batch=grid[-1], min_queue=16, max_queue=256)
         ctl_qps, rep = drive(profile, grid[0], cap)
         mean_active = float(rep.capacity.get("mean_active_replicas",

@@ -28,10 +28,13 @@ Phases, in order; any failure exits non-zero:
      token-by-token decode in bf16, (d) a 2-layer float32 copy on the card
      against the CPU; per-batch times, and one decode step's time and
      top device operations (torch.profiler);
-  7. the paper's deployment analysis from this card's numbers: stage times
-     at B = 256, 1024, 4096, the fig 7-10 series and the fig 11 Pareto
-     front, tables 2 and 3 (table 2 within 3% of the paper), and the H100
-     cost balance from the measured host and card rates;
+  7. the paper's deployment analysis from this card's numbers, through
+     benchmarks/torch_fig6_overheads.py, torch_fig7_10_parallel.py,
+     torch_fig11_pareto.py and torch_table2_3_cost.py on phase 4's rule set
+     and engine: fig 6's stage split at B = 64 to 8192, stage times at
+     B = 256, 1024, 4096, the fig 7-10 series and the fig 11 Pareto front,
+     tables 2 and 3 (table 2 within 3% of the paper), and the H100 cost
+     balance from the measured host and card rates;
   8. the serving stack (repro_torch.serve): build() with two colocated
      replicas of the full-width llama3.2-3b behind phase 4's engine, cache
      and trace on; phase 6's requests served in sync mode, then pipelined
@@ -83,9 +86,21 @@ Phases, in order; any failure exits non-zero:
      phase 6's requests give the sync baseline's tokens and drops through
      the mesh's replica; (t) the dry run of llama3.2-3b train_4k on 16x16
      and qwen3-moe-235b-a22b decode_32k on 2x16x16: each record ok, its
-     per-device parameter bytes, FLOPs, collectives and roofline terms.
-It then prints JSON lines for phases 7, 6, 8, 9, 10 and 11 and the kernels
-and, last, the device line.
+     per-device parameter bytes, FLOPs, collectives and roofline terms;
+ 12. the paper's figures on the card through benchmarks/torch_*.py: fig 4
+     (queries/s against B = 256..8192, v1 and v2 at 160k rules, 1/2/4
+     engines; 20 calls a point, with quartiles), fig 12 (cpu_match_numpy against the partitioned and the
+     CUDA-kernel paths per user query, with the crossovers), fig 13's
+     open-loop load sweep (each point's batch sizes; one more 4x point
+     with 512 requests) and sync/pipelined inset on the full-width
+     llama3.2-3b, and the roofline table over phase 11's two records;
+     checks (u) every fig 4 point equals the plain version on the card and
+     does not depend on n_engines, (v) fig 12's three paths agree and the
+     kernel launches once a paper_policy batch, (w) the inset's pipelined
+     tokens equal sync, (x) every suite ran and build/torch_bench.json has
+     the reference's row names (h100_balance for tpu_balance).
+It then prints JSON lines for phases 7, 6, 8, 9, 10, 11 and 12 and the
+kernels and, last, the device line.
 Nothing runs without a card: the port's CPU paths are the tests' business.
 """
 from __future__ import annotations
@@ -100,6 +115,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "benchmarks"))    # the figure harnesses
 
 N_RULES = 160_000
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/rule_match.cu"
@@ -119,9 +135,25 @@ BF16_REL_TOL = 0.05
 # check (d): float32, TF32 off, card against CPU: another summation order
 # over products of up to 8,192 terms and a 128,256-wide vocabulary
 F32_TOL = 1e-3                      # atol = rtol
-# phase 7: the paper's deployment series at the batch of fig 7-11
-DEPLOY_BATCH = 4096
-STAGE_BATCHES = (256, 1024, 4096)
+# phases 7 and 12: the paper's figures through benchmarks/torch_*.py, on
+# generate_queries(seed 43) queries as the reference's harnesses; stage
+# times for figs 7-11 are medians of 3 (the harness's default is 2)
+FIG_QUERIES = 8_192
+STAGE_REPEATS = 3
+# phase 12 (figs 4, 12, 13 and the roofline). One cut of the harnesses'
+# defaults, for the script's time: fig 12 runs the first 7 of its 10 user
+# queries (1,844 of 3,271 MCT queries; the workload's first k user queries
+# do not depend on k, and the 7th checks 402, above the paper's ~400).
+# cpu_match_numpy scans 160k rules at ~17 ms a query: all 10 took 63 s of
+# phase 12's 124 s on the card's machine
+FIG12_USERS = 7
+# fig 4 times a point as the median of 20 calls (the harness's default is
+# the reference's 3): a call of 0.2-1 ms on the host's clock varies by up
+# to 2x between runs. Fig 13 adds one 4x point of 512 requests to its
+# sweep of 64 a point, a window in which the first and last batches weigh
+# little
+FIG4_REPEATS = 20
+FIG13_LONG_N = 512
 # phase 9: every other decoder family at full width behind the same filter,
 # 8 of phase 6's requests a model with 4 new tokens; the one depth cut is
 # qwen3's (94 layers would take 470 GB in bf16)
@@ -454,7 +486,7 @@ def phase_main_path(dev, n_rules: int, n_users: int, n_check: int):
     print(f"reload: {us:.1f} us device swap (table packed once), results "
           "unchanged")
     queries = [q for b in batches for q in b.queries]
-    return engine, all_enc, queries, launches, n_q / wall
+    return ruleset, engine, all_enc, queries, launches, n_q / wall
 
 
 def count_work(q, mins, maxs, crit_order=None, groups=()):
@@ -1152,74 +1184,31 @@ def phase_serving(dev, engine, queries, card: str):
         checks={k: True for k in "efghi"})
 
 
-def phase_deployment(engine, queries, timed, card: str):
-    """The paper's deployment analysis (figs 7-11, tables 2-3) and the H100
-    cost balance, from this card's stage times and lane time."""
+def phase_deployment(bench, timed, card: str):
+    """Phase 7: the paper's deployment analysis through the figure
+    harnesses on phase 4's engine (``bench``): fig 6's stage split, the
+    stage times of figs 7-11 and their series and Pareto front, tables 2
+    and 3, and the H100 cost balance from this card's host encode rate and
+    phase 5's lane time."""
+    import torch_fig6_overheads as fig6
+    import torch_fig7_10_parallel as fig7_10
+    import torch_fig11_pareto as fig11
+    import torch_table2_3_cost as table2_3
     from repro_torch.core import cost_model as cm
-    from repro_torch.core.aggregator import Batch
-    from repro_torch.core.deployment import Config, evaluate, pareto, sweep
-    from repro_torch.core.wrapper import measure_stage_times
+    from repro_torch.kernels.rule_match import rule_match
 
-    def make_batch(n):
-        return Batch(0, [queries[i % len(queries)] for i in range(n)],
-                     [(0, -1)] * n)
-
-    st = measure_stage_times(engine, make_batch, STAGE_BATCHES, repeats=3)
+    rule_match.launches = 0
+    split = fig6.run(bench)
+    fig6_launches = rule_match.launches
+    rule_match.launches = 0
+    st = fig7_10.measure(bench, repeats=STAGE_REPEATS)
+    stage_launches = rule_match.launches
     for t in st:
         print(f"stage times ({card}; median of 3), B = {t.batch}: encode_us "
               f"{t.encode_us:.1f}, dispatch_us {t.dispatch_us:.1f}, "
               f"kernel_us {t.kernel_us:.1f}, collect_us {t.collect_us:.1f}")
-    # the configurations of benchmarks/fig7_10_parallel.py and fig11_pareto.py
-    series = {
-        "fig7_engines": [Config(1, 1, 1, e) for e in (1, 2, 4)],
-        "fig8_uniform": [Config(c, c, c, 1) for c in (1, 2, 4)],
-        "fig9_workers_per_kernel": [Config(w, w, 1, 4)
-                                    for w in (1, 2, 4, 8)],
-        "fig10_procs_per_worker": [Config(p, 1, 1, 4)
-                                   for p in (1, 2, 8, 16, 32)],
-    }
-    out = {}
-    for name, cfgs in series.items():
-        for c in cfgs:
-            perf = evaluate(c, st, DEPLOY_BATCH)
-            out[(name, c)] = perf
-            print(f"{name} {c.label()}: latency {perf.latency_us:.1f} us, "
-                  f"{perf.throughput_qps:.4g} queries/s")
-    e1 = out[("fig7_engines", Config(1, 1, 1, 1))]
-    e4 = out[("fig7_engines", Config(1, 1, 1, 4))]
-    p16 = out[("fig10_procs_per_worker", Config(16, 1, 1, 4))]
-    p32 = out[("fig10_procs_per_worker", Config(32, 1, 1, 4))]
-    print(f"fig7: 4 engines cut latency {e1.latency_us / e4.latency_us:.2f}x;"
-          f" fig10: 16 -> 32 processes a worker gain "
-          f"{p32.throughput_qps / p16.throughput_qps:.2f}x")
-    cfgs = [Config(p, w, k, e)
-            for p in (1, 2, 4) for w in (1, 2, 4)
-            for k in (1, 2, 4) for e in (1, 2, 4)
-            if w >= k and p >= w and k * e <= 4]
-    perfs = sweep(cfgs, st, [DEPLOY_BATCH])
-    front = pareto(perfs)
-    for pf in front:
-        print(f"fig11 front {pf.config.label()}: latency "
-              f"{pf.latency_us:.1f} us, {pf.throughput_qps:.4g} queries/s")
-    top = max(q.throughput_qps for q in perfs)
-    floor = min((q for q in perfs if q.throughput_qps >= 0.5 * top),
-                key=lambda q: q.latency_us)
-    print(f"fig11 best latency at >= half the top throughput: "
-          f"{floor.config.label()}, {floor.latency_us:.1f} us, "
-          f"{floor.throughput_qps:.4g} queries/s")
-
-    worst = 0.0
-    for d in cm.table2():
-        want = cm.PAPER_TABLE2_TOTALS[d.name]
-        worst = max(worst, abs(d.total_usd / want - 1))
-        print(f"table 2 {d.name}: {d.units} x {d.element} = "
-              f"${d.total_usd:,.0f} (paper ${want:,.0f})")
-    for d in cm.table3():
-        print(f"table 3 {d.name}: {d.units} x {d.element} = "
-              f"${d.total_usd:,.0f}")
-    if worst > 0.03:
-        fail(f"table 2 is {worst:.1%} off the paper's totals (limit 3%)")
-    print(f"table 2 within {worst:.2%} of the paper's totals (limit 3%)")
+    fig7_10.run(bench, stage_times=st)
+    front = fig11.run(bench, stage_times=st)
 
     enc_us = next(t.encode_us for t in st if t.batch == 1024)
     lane_ms = next(r["ms"] for r in timed if r["B"] == 4096)
@@ -1231,17 +1220,22 @@ def phase_deployment(engine, queries, timed, card: str):
           f"{params.accel_qps_per_chip:.6g} queries/s (phase 5 lane, B = "
           f"4096); {params.host_vcpus_per_gpu:g} vCPUs and "
           f"${params.gpu_usd_per_hour:.2f}/h a GPU (p5.48xlarge)")
-    balance = {}
-    for q in (2e8, 2e9, 2e10):
-        balance[f"{q:.0e}"] = r = cm.h100_balance(params, q)
-        print(f"h100_balance at {q:.0e} queries/s: " + ", ".join(
-            f"{k} {v:.6g}" for k, v in r.items()))
+    costs = table2_3.run(bench, params=params)
+    if costs["worst"] > table2_3.TABLE2_TOL:
+        fail(f"table 2 is {costs['worst']:.1%} off the paper's totals "
+             f"(limit {table2_3.TABLE2_TOL:.0%})")
+    print(f"table 2 within {costs['worst']:.2%} of the paper's totals "
+          f"(limit {table2_3.TABLE2_TOL:.0%}); fig 6 launches "
+          f"{fig6_launches}, stage times launches {stage_launches}")
     return dict(stage_times=[vars(t) for t in st],
+                fig6_stage_times=[vars(t) for t in split],
                 host_qps_per_vcpu=params.host_qps_per_vcpu,
                 accel_qps_per_chip=params.accel_qps_per_chip,
-                balance=balance, table2_worst=worst,
+                balance=costs["balance"], table2_worst=costs["worst"],
                 pareto=[(pf.config.label(), pf.latency_us, pf.throughput_qps)
-                        for pf in front])
+                        for pf in front],
+                launches_fig6=fig6_launches,
+                launches_stage_times=stage_launches)
 
 
 @contextlib.contextmanager
@@ -2105,12 +2099,141 @@ def phase_mesh(dev, engine, queries, card: str, training: dict,
                 checks={"q": True, "r": True, "s": True, "t": True})
 
 
+def phase_figures(dev, bench, card: str, deploy: dict):
+    """Phase 12: the paper's figures on the card through the harnesses:
+    fig 4 on 160k v1 and v2 rules, fig 12 on phase 4's rule set, fig 13's
+    load sweep and inset on the full-width route scorer, and the roofline
+    table over phase 11's dry-run records; checks (u)-(x)."""
+    import numpy as np
+    import torch
+    import torch_fig4_throughput as fig4
+    import torch_fig12_cpu_accel as fig12
+    import torch_fig13_endtoend as fig13
+    import torch_roofline_table as roofline
+    import torch_run
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rule_match import rule_match
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    v1 = bench.system(1)
+    bench.engine(1)
+    print(f"phase 12: v1 rule set, {N_RULES} rules -> R={v1.table.n_rules} "
+          f"C={v1.table.n_cols}, {FIG_QUERIES} queries, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rule_match.launches = 0
+    qps, outputs = fig4.run(bench, repeats=FIG4_REPEATS)
+    launches = {"fig4": rule_match.launches}
+    bmax = max(fig4.BATCHES)
+    for v in fig4.VERSIONS:                                       # (u)
+        q = torch.as_tensor(bench.system(v).encoded[:bmax], device=dev)
+        want = [x.cpu().numpy()
+                for x in ops.match_rules(q, bench.engine(v).dt,
+                                         backend="ref")]
+        for (vv, e, b), got in outputs.items():
+            if vv == v and not all(np.array_equal(g, w[:b])
+                                   for g, w in zip(got, want)):
+                fail(f"(u) fig 4 v{v} n_engines={e} B={b} differs from "
+                     "the plain version on the card")
+    if launches["fig4"] <= 0:
+        fail("(u) fig 4 launched no kernel")
+    ratio = next(r for r in bench.results
+                 if r["name"] == "fig4/v2_vs_v1_saturated")
+    print(f"check (u): fig 4's {len(outputs)} points equal the plain "
+          f"version on the card and each other across n_engines "
+          f"{fig4.ENGINES}; {launches['fig4']} kernel launches; v2/v1 "
+          f"saturated {ratio['ratio']:.4f}, quartile range "
+          f"{ratio['ratio_lo']:.4f}-{ratio['ratio_hi']:.4f} (paper 0.80)")
+
+    rule_match.launches = 0
+    f12 = fig12.run(bench, n_users=FIG12_USERS)
+    launches["fig12"] = rule_match.launches
+    bad = [r for r in f12["rows"] if r["kernel_launches"] != r["calls"]]
+    if bad or not f12["rows"]:                                    # (v)
+        fail(f"(v) fig 12: kernel launches differ from paper_policy's "
+             f"calls on {bad}")
+    print(f"check (v): fig 12's CUDA, partitioned and cpu_match_numpy "
+          f"paths agree on {len(f12['rows'])} user queries; calls a user "
+          f"query {[r['calls'] for r in f12['rows']]} (paper_policy), "
+          f"crossover {f12['crossover']}; {launches['fig12']} launches")
+
+    t0 = time.perf_counter()
+    # (w): card_sections raises if the inset's pipelined tokens differ
+    f13 = fig13.card_sections(bench, long_n=FIG13_LONG_N)
+    gc.collect()
+    torch.cuda.empty_cache()
+    inset = f13["inset"]
+    print(f"fig 13 ({card}): {fig13.ARCH} at full width in {f13['dtype']}, "
+          f"{time.perf_counter() - t0:.1f} s; capacity "
+          f"{f13['capacity_qps']:.4f} requests/s at batch 8")
+    for pt in f13["load"]:
+        print(f"  {pt['fraction']:g}x, {pt['n_offered']} requests: offered "
+              f"{pt['offered_qps']:.4f}, achieved {pt['achieved_qps']:.4f} "
+              f"requests/s over {pt['span_s']:.4f} s; execute_idle "
+              f"{pt['execute_idle']:.4f}; {pt['n_batches']} batches, mean "
+              f"{pt['mean_batch']:.4f}, sizes {pt['batch_hist']}, "
+              f"{pt['batch_ms']:.4f} ms a batch; rejected "
+              f"{pt['n_rejected']}")
+    print(f"check (w): fig 13 inset, {len(inset['sync'])} requests, "
+          f"pipelined tokens equal sync; sync {inset['sync_s']:.4f} s, "
+          f"pipelined {inset['pipelined_s']:.4f} s")
+
+    rows = roofline.run(bench, art_dir=DRYRUN_DIR)
+
+    # (x): every suite ran and has the reference's row names (fig 13: its
+    # load sweep and inset, the parts that run on the card)
+    suites = ("fig4", "fig6", "fig7_10", "fig11", "fig12", "fig13",
+              "table2", "roofline")
+    path = torch_run.write_json(ROOT / "build" / "torch_bench.json", bench,
+                                suites, [])
+    results = json.loads(path.read_text())["results"]
+    missing = []
+    for suite in suites:
+        names = torch_run.reference_rows(suite)
+        if suite == "fig13":
+            names = [n for n in names if n.startswith(("fig13_load_",
+                                                       "fig13_pipeline"))]
+        missing += torch_run.missing_rows(results, names)
+    if missing or not rows:                                       # (x)
+        fail(f"(x) rows missing from {path}: {missing}; roofline rows "
+             f"{len(rows)}")
+    print(f"check (x): {len(results)} rows of {len(suites)} suites in "
+          f"{path.relative_to(ROOT)}, every reference row name present")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 12 took {wall:.1f} s")
+    return dict(
+        card=card, seconds=wall, launches=launches,
+        fig4_qps={f"v{v}_e{e}_b{b}": x for (v, e, b), x in qps.items()},
+        fig4_v2_vs_v1_saturated=ratio["ratio"],
+        fig4_v2_vs_v1_quartile_range=[ratio["ratio_lo"],
+                                      ratio["ratio_hi"]],
+        fig6_launches=deploy["launches_fig6"],
+        fig12=[{k: r[k] for k in ("n_mct", "calls", "cpu_us",
+                                  "partitioned_us", "kernel_us")}
+               for r in f12["rows"]],
+        fig12_crossover=f12["crossover"],
+        fig13_capacity_qps=f13["capacity_qps"],
+        # execute_idle: the replica's execute-stage idle share, which on
+        # the card includes the host's launches; not the card's idle share
+        fig13_load=[{k: pt[k] for k in (
+            "fraction", "n_offered", "offered_qps", "achieved_qps",
+            "span_s", "execute_idle", "n_batches", "mean_batch",
+            "batch_hist", "batch_ms", "n_rejected", "p50_ms", "p99_ms")}
+            for pt in f13["load"]],
+        fig13_inset={k: inset[k] for k in ("sync_s", "pipelined_s",
+                                           "tokens_equal")},
+        roofline={f"{r.arch}/{r.shape}/{r.mesh}": r.dominant for r in rows},
+        checks={k: True for k in "uvwx"})
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card: chip_smoke.py drives the port on the card only")
     from repro_torch.kernels import rule_match as rm
+    import torch_common as tc
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2131,7 +2254,7 @@ def main() -> None:
     if worst != 0:
         fail(f"kernel disagrees with its plain version (max_abs_err {worst})")
 
-    engine, all_enc, queries, launches, qps = phase_main_path(
+    ruleset, engine, all_enc, queries, launches, qps = phase_main_path(
         dev, N_RULES, n_users=16, n_check=2048)
     timed = phase_kernel_time(dev, engine, all_enc)
     worst = max([worst] + [r["max_abs_err"] for r in timed])
@@ -2140,13 +2263,19 @@ def main() -> None:
     t0 = time.perf_counter()
     scorer = phase_route_scorer(dev, engine, queries, card)
     t1 = time.perf_counter()
-    deploy = phase_deployment(engine, queries, timed, card)
+    # the figure harnesses' bench: phase 4's rule set and engine, the
+    # reference's generate_queries queries
+    bench = tc.Bench(dev, N_RULES, FIG_QUERIES)
+    bench.systems[2] = tc.with_queries(ruleset, engine.table, FIG_QUERIES)
+    bench.engines[2] = engine
+    deploy = phase_deployment(bench, timed, card)
     print(f"phase 6 took {t1 - t0:.1f} s, phase 7 "
           f"{time.perf_counter() - t1:.1f} s")
     serving = phase_serving(dev, engine, queries, card)
     families = phase_families(dev, engine, queries, card)
     training = phase_training(dev, card)
     mesh = phase_mesh(dev, engine, queries, card, training, scorer)
+    figures = phase_figures(dev, bench, card, deploy)
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     family_launches = {f"family_{a}": r["launches"]
                        for a, r in families["models"].items()
@@ -2163,12 +2292,15 @@ def main() -> None:
     print(json.dumps({"families": {"card": card, **families}}))
     print(json.dumps({"training": {"card": card, **training}}))
     print(json.dumps({"mesh": {"card": card, **mesh}}))
+    print(json.dumps({"figures": figures}))
     t = next(r for r in timed if r["B"] == 1024)
     print(json.dumps({"kernels": [{
         "name": "rule_match", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": launches + scorer["launches"] + serving["launches"]
-        + sum(family_launches.values()) + mesh["serving"]["launches"],
+        + sum(family_launches.values()) + mesh["serving"]["launches"]
+        + deploy["launches_fig6"] + deploy["launches_stage_times"]
+        + sum(figures["launches"].values()),
         "launches_by_path": {"mct_wrapper": launches,
                              "route_scorer": scorer["launches"],
                              "serving_sync": serving["launches_sync"],
@@ -2177,7 +2309,11 @@ def main() -> None:
                              "serving_cached": serving["launches_cached"],
                              "serving_live": serving["launches_live"],
                              **family_launches,
-                             "serving_mesh": mesh["serving"]["launches"]},
+                             "serving_mesh": mesh["serving"]["launches"],
+                             "fig6": deploy["launches_fig6"],
+                             "fig7_11_stage_times":
+                                 deploy["launches_stage_times"],
+                             **figures["launches"]},
         "exact": True,
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "plain_packed_ms": t["plain_packed_ms"],

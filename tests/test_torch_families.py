@@ -105,8 +105,12 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
-    assert len(files) > 40
+        + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "benchmarks").glob("torch_*.py")) \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(files) > 60
+    assert ROOT / "benchmarks" / "torch_run.py" in files
+    assert ROOT / "examples" / "torch_quickstart.py" in files
     bad = {str(f.relative_to(ROOT)): r for f in files
            for r in _imported_roots(f) if r in ("jax", "jaxlib", "repro")}
     assert not bad
