@@ -1,0 +1,12 @@
+"""The benchmark's own tests. Run from the repository root:
+
+    python -m pytest bench/tests            # CPU; card tests skip
+    python -m pytest -m gpu bench/tests -s  # on the card
+"""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
