@@ -7,6 +7,15 @@ evaluation engines per kernel' axis (parallel lanes over a batch).
 Rule hot-reload (the paper's 500 µs NFA update) swaps the device table
 buffers without touching the compiled matcher.
 
+Given a ``Tracer``, ``match`` leaves a ``match`` span over its host time,
+tiled by ``lane.upload`` (``torch.as_tensor`` of the caller's array),
+``lane.sort`` (the host-side argsort above ``rule_match.SORT_MAX``),
+``lane.launch`` (see ``ops.match_rules``) and ``lane.lookup`` (the lanes'
+concatenation and the decision and rule-id lookup); in the partitioned mode
+one ``lane.launch`` follows the upload. It reads no CPU clock: on the card's
+host a read is a system call that can cost as much as the call's own host
+work.
+
 CPU baselines (paper §5.2): ``cpu_match_numpy`` — the optimised vectorised
 implementation standing in for the refactored C++ MCT v2 module; and
 ``cpu_match_python`` — a per-query scalar loop (the pre-optimisation shape).
@@ -14,7 +23,7 @@ implementation standing in for the refactored C++ MCT v2 module; and
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,12 +34,17 @@ from repro_torch.core.rules import RuleSet
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
 
+if TYPE_CHECKING:
+    from repro_torch.serve.trace import Tracer
+
 
 class ErbiumEngine:
     def __init__(self, table: CompiledRuleTable, *, device="cuda",
                  n_engines: int = 1, tile_r: int = 512,
-                 backend: str = "kernel", partitioned: bool = False):
+                 backend: str = "kernel", partitioned: bool = False,
+                 tracer: Optional[Tracer] = None):
         self.device = resolve_device(device)
+        self.tracer = tracer
         self.table = table
         self.n_engines = n_engines
         self.tile_r = tile_r     # the device table's padding
@@ -49,11 +63,20 @@ class ErbiumEngine:
                                       torch.Tensor]:
         """(decision, weight, rule_id), each (B,) int32 on the engine's
         device. ``encoded`` is a (B, C) numpy array or tensor."""
+        tr = self.tracer
+        t0 = tr.lap_start() if tr is not None else 0.0
         q = torch.as_tensor(encoded, dtype=torch.int32, device=self.device)
+        if tr is not None:
+            tr.lap("lane.upload")
         if self.partitioned:
-            return ops.match_rules_partitioned(q, self.dt)
-        return ops.match_rules(q, self.dt, backend=self.backend,
-                               n_engines=self.n_engines)
+            out = ops.match_rules_partitioned(q, self.dt)
+        else:
+            out = ops.match_rules(q, self.dt, backend=self.backend,
+                                  n_engines=self.n_engines, tracer=tr)
+        if tr is not None:
+            last = "lane.launch" if self.partitioned else "lane.lookup"
+            tr.span("match", t0, tr.lap(last), n=len(q))
+        return out
 
     def encode_queries_host(self, queries: Sequence[Dict[str, int]]
                             ) -> np.ndarray:

@@ -11,6 +11,13 @@ On the card, dispatch is a copy from pinned host memory followed by a
 synchronize, and the kernel stage ends in ``torch.cuda.synchronize``, so each
 stage's time is the device's and not only its enqueue. Worker threads share
 the engine: the kernel launch releases the interpreter lock.
+
+Given a ``Tracer``, each batch also leaves one span a stage on the same
+clock readings as its ``StageTimes`` (``queue_wait``, ``encode``,
+``dispatch``, ``device_execute``, ``collect``), each but the queue wait with
+the worker thread's CPU time over it (``cpu_us``: wall minus CPU is the
+time the thread was runnable but not running), and ``drain`` adds the
+``handoff`` from the worker's end of the batch to the caller's ``get``.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +34,9 @@ from repro_torch.core.aggregator import Batch
 from repro_torch.core.encoder import queries_to_arrays
 from repro_torch.core.engine import ErbiumEngine
 from repro_torch.device import synchronize
+
+if TYPE_CHECKING:
+    from repro_torch.serve.trace import Tracer
 
 
 @dataclass
@@ -51,14 +61,17 @@ class MCTResult:
     weights: np.ndarray
     times: StageTimes
     rule_ids: Optional[np.ndarray] = None
+    t_done: float = 0.0     # the worker's end of the batch (perf_counter)
 
 
 class MCTWrapper:
     """n_workers worker threads sharing one engine pool (1..k engines)."""
 
-    def __init__(self, engines: Sequence[ErbiumEngine], n_workers: int = 1):
+    def __init__(self, engines: Sequence[ErbiumEngine], n_workers: int = 1,
+                 tracer: Optional[Tracer] = None):
         self.engines = list(engines)
         self.n_workers = n_workers
+        self.tracer = tracer
         self._in: "queue.Queue" = queue.Queue()
         self._out: "queue.Queue" = queue.Queue()
         self._threads: List[threading.Thread] = []
@@ -88,7 +101,11 @@ class MCTWrapper:
     def drain(self, n: int, timeout: float = 60.0) -> List[MCTResult]:
         out = []
         for _ in range(n):
-            out.append(self._out.get(timeout=timeout))
+            res = self._out.get(timeout=timeout)
+            if self.tracer is not None:
+                self.tracer.span("handoff", res.t_done, time.perf_counter(),
+                                 uid=res.uid, n=len(res.decisions))
+            out.append(res)
         return out
 
     def process(self, batch: Batch, engine_idx: int = 0) -> MCTResult:
@@ -103,18 +120,22 @@ class MCTWrapper:
                 return
             t_in, batch = item
             eng = wi % len(self.engines)
-            self._out.put(self._execute(t_in, batch, eng))
+            self._out.put(self._execute(t_in, batch, eng, wi))
 
-    def _execute(self, t_in: float, batch: Batch, eng_idx: int) -> MCTResult:
+    def _execute(self, t_in: float, batch: Batch, eng_idx: int,
+                 worker: Optional[int] = None) -> MCTResult:
         st = StageTimes(batch=len(batch.queries))
         eng = self.engines[eng_idx]
         dev = eng.device
+        tr = self.tracer
         t0 = time.perf_counter()
+        c0 = time.thread_time() if tr is not None else 0.0
         st.queue_us = (t0 - t_in) * 1e6
 
         fields = queries_to_arrays(batch.queries)
         enc = eng.encode(fields)
         t1 = time.perf_counter()
+        c1 = time.thread_time() if tr is not None else 0.0
         st.encode_us = (t1 - t0) * 1e6
 
         host = torch.from_numpy(enc)
@@ -123,11 +144,13 @@ class MCTWrapper:
         q = host.to(dev, non_blocking=True)
         synchronize(dev)
         t2 = time.perf_counter()
+        c2 = time.thread_time() if tr is not None else 0.0
         st.dispatch_us = (t2 - t1) * 1e6
 
         dec, w, rid = eng.match(q)
         synchronize(dev)
         t3 = time.perf_counter()
+        c3 = time.thread_time() if tr is not None else 0.0
         st.kernel_us = (t3 - t2) * 1e6
 
         dec_h = dec.cpu().numpy()
@@ -137,8 +160,18 @@ class MCTWrapper:
         _ = dec_h.sum()
         t4 = time.perf_counter()
         st.collect_us = (t4 - t3) * 1e6
+        if tr is not None:
+            c4 = time.thread_time()
+            meta = dict(replica=eng_idx, worker=worker, uid=batch.uid,
+                        n=st.batch)
+            tr.span("queue_wait", t_in, t0, **meta)
+            for stage, a, b, ca, cb in (
+                    ("encode", t0, t1, c0, c1), ("dispatch", t1, t2, c1, c2),
+                    ("device_execute", t2, t3, c2, c3),
+                    ("collect", t3, t4, c3, c4)):
+                tr.span(stage, a, b, cpu_us=(cb - ca) * 1e6, **meta)
         return MCTResult(uid=batch.uid, decisions=dec_h, weights=w_h,
-                         times=st, rule_ids=rid_h)
+                         times=st, rule_ids=rid_h, t_done=t4)
 
 
 def measure_stage_times(engine: ErbiumEngine, make_batch, batch_sizes,

@@ -118,7 +118,7 @@ def _lookup(dt: DeviceRuleTable, w, idx):
 
 
 def match_rules(queries, dt: DeviceRuleTable, *, backend: str = "kernel",
-                n_engines: int = 1):
+                n_engines: int = 1, tracer=None):
     """queries: (B, C) int32 on the table's device. Returns (decision, weight,
     rule_id), (B,) int32 each.
 
@@ -128,27 +128,35 @@ def match_rules(queries, dt: DeviceRuleTable, *, backend: str = "kernel",
     many kernel lanes (the paper's 'NFA evaluation engines per kernel'
     axis); the outputs do not depend on it. The kernel takes any batch size
     and tiles the rules itself, so nothing is padded here.
+
+    With a ``Tracer`` (``tracer``), the calling thread's laps (opened by the
+    caller with ``Tracer.lap_start``) go on with ``lane.sort`` and
+    ``lane.launch`` from each lane's ``rule_match_packed`` (for ``"ref"``,
+    one ``lane.launch`` over the plain version); the caller's next lap
+    takes the concatenation and the lookup.
     """
     if backend not in ("kernel", "ref"):
         raise ValueError(f"backend must be 'kernel' or 'ref', not {backend!r}")
     if backend == "ref":
         w, idx = ref_mod.rule_match_ref(queries, dt.mins_t.T, dt.maxs_t.T,
                                         dt.weights[0])
+        if tracer is not None:
+            tracer.lap("lane.launch")
     else:
-        outs = [match_lane(lane, dt)
+        outs = [match_lane(lane, dt, tracer=tracer)
                 for lane in queries.tensor_split(n_engines)]
         w = torch.cat([bw for bw, _ in outs])
         idx = torch.cat([bi for _, bi in outs])
     return _lookup(dt, w, idx)
 
 
-def match_lane(lane, dt: DeviceRuleTable):
+def match_lane(lane, dt: DeviceRuleTable, *, tracer=None):
     """One engine lane on the packed table: the kernel takes the lane's
     queries sorted by their code in the leading criterion, so that a warp's
     queries pass or fail it together, and writes the results back in the
     lane's order. lane: (B, C) int32. Returns (best_w (B,), best_i (B,))."""
     return rule_match_packed(lane, dt.bounds, dt.weights_k, dt.crit_order,
-                             sort_col=dt.lead_col)
+                             sort_col=dt.lead_col, tracer=tracer)
 
 
 def match_rules_partitioned(queries, dt: DeviceRuleTable):

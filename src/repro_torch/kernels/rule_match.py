@@ -197,7 +197,7 @@ def plan(dev, C, B, R) -> dict:
 
 
 def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
-                      sort_col=None):
+                      sort_col=None, tracer=None):
     """Match on the packed table.
 
     queries: (B, C) int32, any strides, in the caller's column order;
@@ -208,6 +208,12 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
     come; the results are in the caller's order either way. On the card the
     sort is a kernel of the same launch up to ``SORT_MAX`` queries (argsort
     above). Returns (best_w (B,), best_i (B,)).
+
+    With a ``Tracer`` (``tracer``), the calling thread's laps go on with
+    ``lane.sort`` (the argument checks and the argsort, only where the
+    batch is sorted above ``SORT_MAX``: on the card the launch sorts the
+    smaller ones itself, and the plain version's argsort stands for that)
+    and ``lane.launch`` (the rest, through the kernel's launch).
     """
     B, C, R = _check_packed(queries, bounds, weights_k, crit_order, order)
     if order is not None and sort_col is not None:
@@ -216,11 +222,15 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
     if dev.type == "cpu":
         if sort_col is not None:
             order = torch.argsort(queries[:, sort_col])
+            if tracer is not None and B > SORT_MAX:
+                tracer.lap("lane.sort")
         q = queries if order is None else queries[order]
         w, i = ref_mod.rule_match_packed_ref(q, bounds, weights_k, crit_order)
         if order is not None:
             w = torch.empty_like(w).index_copy_(0, order, w)
             i = torch.empty_like(i).index_copy_(0, order, i)
+        if tracer is not None:
+            tracer.lap("lane.launch")
         return w, i
     if dev.type != "cuda":
         raise ValueError(f"rule_match runs on CUDA or CPU tensors, not {dev}")
@@ -236,8 +246,13 @@ def rule_match_packed(queries, bounds, weights_k, crit_order, order=None, *,
         return (torch.empty((0,), dtype=torch.int32, device=dev),) * 2
     if sort_col is not None and B > SORT_MAX:
         order, sort_col = torch.argsort(queries[:, sort_col]), None
-    return _launch(queries, bounds, weights_k, crit_order, order, sort_col,
-                   plan(dev, C, B, R))
+        if tracer is not None:
+            tracer.lap("lane.sort")
+    out = _launch(queries, bounds, weights_k, crit_order, order, sort_col,
+                  plan(dev, C, B, R))
+    if tracer is not None:
+        tracer.lap("lane.launch")
+    return out
 
 
 def _launch(queries, bounds, weights_k, crit_order, order, sort_col, grid):

@@ -15,6 +15,14 @@ plus ``controller`` events from the capacity subsystem, so batch-target
 doubling and replica parking are visible on the same timeline as the
 requests they affect.
 
+The MCT path emits into the same ring when given a tracer
+(``MCTWrapper(tracer=)``, ``ErbiumEngine(tracer=)``): the wrapper's
+``queue_wait -> encode -> dispatch -> device_execute -> collect`` per batch,
+each but the queue wait with the worker thread's CPU time (``cpu_us``),
+then ``handoff`` back to the caller; and ``match``, the host side of
+``ErbiumEngine.match``, tiled by ``lane.upload -> lane.sort -> lane.launch
+-> lane.lookup`` (``Tracer.lap``).
+
 Design rules:
 
 - **Off by default, bit-identical off.** Every emission site in
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -58,6 +67,8 @@ LIFECYCLE_STAGES = (
     "dispatch", "device_execute", "complete",
     "reject", "shed", "drop", "follower_drop", "negative_drop",
     "cache_store", "controller",
+    "collect", "handoff", "match",
+    "lane.upload", "lane.sort", "lane.launch", "lane.lookup",
 )
 
 
@@ -73,7 +84,7 @@ class TraceConfig(Coercible):
     capacity: int = 65536
 
 
-@dataclass
+@dataclass(slots=True)
 class Span:
     """One traced event. A *span* covers ``[t0, t1]``; a *mark* is a
     zero-duration span (``t1 == t0``). ``rid`` ties it to a request,
@@ -126,6 +137,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._spans: "deque[Span]" = deque(maxlen=max(1, self.cfg.capacity))
         self.n_emitted = 0
+        self._laps = threading.local()
 
     def span(self, stage: str, t0: float, t1: float, *,
              rid: Optional[int] = None, replica: Optional[int] = None,
@@ -142,6 +154,20 @@ class Tracer:
              replica: Optional[int] = None, **meta) -> Span:
         """Record an instantaneous event."""
         return self.span(stage, t, t, rid=rid, replica=replica, **meta)
+
+    def lap_start(self) -> float:
+        """Open the calling thread's laps now; returns the time."""
+        t = self._laps.t = time.perf_counter()
+        return t
+
+    def lap(self, stage: str, **meta) -> float:
+        """Close the calling thread's current lap now as span ``stage``
+        and open the next one there, so that a thread's laps tile the
+        interval from ``lap_start`` with no gaps; returns the time."""
+        t = time.perf_counter()
+        self.span(stage, self._laps.t, t, **meta)
+        self._laps.t = t
+        return t
 
     def spans(self) -> List[Span]:
         """Snapshot of the ring's contents, oldest first."""
@@ -386,16 +412,24 @@ def render_timeline(spans: Sequence[Span], rid: int) -> str:
 
 
 # Chrome trace lane layout: fixed tids for the shared host-side lanes,
-# 10+replica for per-replica device lanes
+# 10+replica for per-replica device lanes, 100+worker for the MCT
+# wrapper's workers (their spans carry ``meta["worker"]``)
 _TID_ADMISSION = 0
 _TID_HOST = 1
 _TID_LIFECYCLE = 2
 _TID_CONTROLLER = 3
+_TID_ENGINE = 4
 _TID_REPLICA_BASE = 10
+_TID_WORKER_BASE = 100
 _PID = 1
 
 
 def _lane_of(s: Span) -> tuple:
+    w = (s.meta or {}).get("worker")
+    if w is not None:
+        return _TID_WORKER_BASE + w, f"wrapper-worker-{w}"
+    if s.stage == "match" or s.stage.startswith("lane."):
+        return _TID_ENGINE, "engine-match"
     if s.stage in ("device_execute", "dispatch"):
         r = s.replica if s.replica is not None else 0
         return _TID_REPLICA_BASE + r, f"replica-{r}"
@@ -410,9 +444,10 @@ def _lane_of(s: Span) -> tuple:
 
 def chrome_events(spans: Sequence[Span]) -> List[Dict[str, object]]:
     """Spans -> Chrome ``trace_event`` list. Duration spans become ``X``
-    events, marks become ``i`` instants, queue waits become async ``b``/
-    ``e`` pairs keyed by rid (they overlap arbitrarily, which thread
-    lanes cannot render), and ``M`` metadata names the lanes."""
+    events, marks become ``i`` instants, queue waits and the MCT wrapper's
+    hand-offs become async ``b``/``e`` pairs keyed by rid (or the batch's
+    uid; they overlap arbitrarily, which thread lanes cannot render), and
+    ``M`` metadata names the lanes."""
     if not spans:
         return []
     origin = min(s.t0 for s in spans)
@@ -430,10 +465,10 @@ def chrome_events(spans: Sequence[Span]) -> List[Dict[str, object]]:
             args["replica"] = int(s.replica)
         if s.meta:
             args.update({k: _json_safe(v) for k, v in s.meta.items()})
-        if s.stage == "queue_wait":
-            common = {"pid": _PID, "cat": "queue_wait",
-                      "name": "queue_wait",
-                      "id": int(s.rid) if s.rid is not None else 0}
+        if s.stage in ("queue_wait", "handoff"):
+            key = s.rid if s.rid is not None else (s.meta or {}).get("uid")
+            common = {"pid": _PID, "cat": s.stage, "name": s.stage,
+                      "id": int(key) if key is not None else 0}
             evs.append({**common, "ph": "b", "ts": us(s.t0), "args": args})
             evs.append({**common, "ph": "e", "ts": us(s.t1)})
             continue
