@@ -5,7 +5,9 @@ table and exposes batched matching; ``n_engines`` reproduces the paper's 'NFA
 evaluation engines per kernel' axis (parallel lanes over a batch).
 
 Rule hot-reload (the paper's 500 µs NFA update) swaps the device table
-buffers without touching the compiled matcher.
+buffers without touching the compiled matcher, and the host encoder's plan
+(``encoder.EncodePlan``) with them: raw queries are encoded by the plan of
+the table they are matched against.
 
 Given a ``Tracer``, ``match`` leaves a ``match`` span over its host time,
 tiled by ``lane.upload`` (``torch.as_tensor`` of the caller's array),
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compiler import CompiledRuleTable, compile_rules
-from repro_torch.core.encoder import encode, queries_to_arrays
+from repro_torch.core.encoder import EncodePlan, encode
 from repro_torch.core.rules import RuleSet
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
@@ -53,6 +55,7 @@ class ErbiumEngine:
         self.dt = ops.device_table(table, tile_r=tile_r,
                                    partitioned=partitioned,
                                    device=self.device)
+        self.plan = EncodePlan(table)
         self.reload_us: Optional[float] = None
 
     # -- online path ---------------------------------------------------------
@@ -81,8 +84,9 @@ class ErbiumEngine:
     def encode_queries_host(self, queries: Sequence[Dict[str, int]]
                             ) -> np.ndarray:
         """Host-side half of the online path: raw query dicts -> dense
-        (B, C) int32 kernel input. Pure numpy."""
-        return self.encode(queries_to_arrays(list(queries)))
+        (B, C) int32 kernel input, by the table's ``EncodePlan``. Pure
+        numpy."""
+        return self.plan.encode(list(queries))[0]
 
     def match_queries(self, queries: Sequence[Dict[str, int]]):
         return self.match(self.encode_queries_host(queries))
@@ -92,6 +96,7 @@ class ErbiumEngine:
         """Swap in a new rule set; returns device-swap time in µs (the
         analog of the paper's 500 µs NFA reload; compilation is offline)."""
         table = compile_rules(ruleset)
+        plan = EncodePlan(table)
         synchronize(self.device)
         t0 = time.perf_counter()
         dt = ops.device_table(table, tile_r=self.tile_r,
@@ -99,7 +104,7 @@ class ErbiumEngine:
                               device=self.device)
         synchronize(self.device)
         us = (time.perf_counter() - t0) * 1e6
-        self.table, self.dt, self.reload_us = table, dt, us
+        self.table, self.dt, self.plan, self.reload_us = table, dt, plan, us
         return us
 
 

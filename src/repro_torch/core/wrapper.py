@@ -16,7 +16,9 @@ Given a ``Tracer``, each batch also leaves one span a stage on the same
 clock readings as its ``StageTimes`` (``queue_wait``, ``encode``,
 ``dispatch``, ``device_execute``, ``collect``), each but the queue wait with
 the worker thread's CPU time over it (``cpu_us``: wall minus CPU is the
-time the thread was runnable but not running), and ``drain`` adds the
+time the thread was runnable but not running), the ``encode`` span whether
+the engine's ``EncodePlan`` sent the batch to the per-key path
+(``fallback``, 0 or 1), and ``drain`` adds the
 ``handoff`` from the worker's end of the batch to the caller's ``get``.
 """
 from __future__ import annotations
@@ -31,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregator import Batch
-from repro_torch.core.encoder import queries_to_arrays
 from repro_torch.core.engine import ErbiumEngine
 from repro_torch.device import synchronize
 
@@ -132,8 +133,7 @@ class MCTWrapper:
         c0 = time.thread_time() if tr is not None else 0.0
         st.queue_us = (t0 - t_in) * 1e6
 
-        fields = queries_to_arrays(batch.queries)
-        enc = eng.encode(fields)
+        enc, fallback = eng.plan.encode(batch.queries)
         t1 = time.perf_counter()
         c1 = time.thread_time() if tr is not None else 0.0
         st.encode_us = (t1 - t0) * 1e6
@@ -165,8 +165,10 @@ class MCTWrapper:
             meta = dict(replica=eng_idx, worker=worker, uid=batch.uid,
                         n=st.batch)
             tr.span("queue_wait", t_in, t0, **meta)
+            tr.span("encode", t0, t1, cpu_us=(c1 - c0) * 1e6,
+                    fallback=int(fallback), **meta)
             for stage, a, b, ca, cb in (
-                    ("encode", t0, t1, c0, c1), ("dispatch", t1, t2, c1, c2),
+                    ("dispatch", t1, t2, c1, c2),
                     ("device_execute", t2, t3, c2, c3),
                     ("collect", t3, t4, c3, c4)):
                 tr.span(stage, a, b, cpu_us=(cb - ca) * 1e6, **meta)
