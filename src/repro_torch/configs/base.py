@@ -6,6 +6,13 @@ dataclasses, no torch). Every assigned architecture has a
 reference's numbers) built on :class:`ModelConfig`.
 ``ModelConfig.reduced()`` derives the CPU-test variant of the same family
 (small widths / few layers / tiny vocab).
+
+Beside the reference's archs the port carries architectures of its own
+(``PORT_ONLY_ARCHS``), which ``get_config`` knows but ``ASSIGNED_ARCHS``
+leaves out, so that every loop over the reference's archs stays as it
+is. They may need fields the reference's ``ModelConfig`` lacks; those live
+on a subclass (``Mamba2HybridConfig``), and ``ModelConfig`` answers
+``None`` for them.
 """
 from __future__ import annotations
 
@@ -65,6 +72,55 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class Mamba2Config:
+    """A Mamba-2 mixer (SSD): ``n_heads`` heads of ``head_dim`` channels,
+    one scalar decay a head, B and C shared by the heads of each of
+    ``n_groups`` groups, state ``state_dim`` a channel; a causal
+    depthwise conv of ``conv_width``, with bias, over x, B and C; the
+    chunked scan in chunks of ``chunk``; a gated RMS norm over each group
+    of channels, the gate applied first."""
+    n_heads: int
+    head_dim: int
+    n_groups: int
+    state_dim: int
+    conv_width: int = 4
+    chunk: int = 128
+
+    @property
+    def d_ssm(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the conv: x, then B and C of every group."""
+        return self.d_ssm + 2 * self.n_groups * self.state_dim
+
+    @property
+    def in_dim(self) -> int:
+        """Width of the in-projection: z, x, B, C and one dt a head."""
+        return self.d_ssm + self.conv_dim + self.n_heads
+
+
+@dataclass(frozen=True)
+class MuPMultipliers:
+    """Falcon-H1's muP multipliers, each a constant factor on one tensor:
+    the embeddings, the logits, the attention branch's input and output
+    and its keys, the Mamba-2 branch's input and output and the five
+    segments z / x / B / C / dt of its in-projection, and the MLP's gate
+    and down projections."""
+    embedding: float = 1.0
+    lm_head: float = 1.0
+    attn_in: float = 1.0
+    attn_out: float = 1.0
+    key: float = 1.0
+    ssm_in: float = 1.0
+    ssm_out: float = 1.0
+    ssm_zxbcdt: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0, 1.0)
+    mlp_gate: float = 1.0
+    mlp_down: float = 1.0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     # identity
     arch: str
@@ -116,6 +172,12 @@ class ModelConfig:
     # scan segmentation for heterogeneous stacks (set automatically)
     logical_axis_rules: Tuple[Tuple[str, Optional[str]], ...] = ()
 
+    # the port-only fields of ``Mamba2HybridConfig`` (class attributes
+    # here, not fields: the reference's configs compare equal field by
+    # field)
+    mamba2 = None
+    mup = None
+
     # -- derived ------------------------------------------------------------
     @property
     def q_dim(self) -> int:
@@ -131,6 +193,8 @@ class ModelConfig:
     def n_params(self) -> int:
         """Analytic parameter count (embedding + blocks), for roofline math."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        if self.mamba2 is not None:
+            return self._n_params_mamba2()
         p = V * D * (1 if self.tie_embeddings else 2)
         per_layer = 0
         if self.family != "ssm":  # xLSTM blocks carry no attention
@@ -158,6 +222,18 @@ class ModelConfig:
             cross = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D + 2 * D
             p += n_cross * cross
         return p + L * per_layer
+
+    def _n_params_mamba2(self) -> int:
+        """Every parameter of a parallel attention + Mamba-2 model, the
+        final norm included."""
+        D, F, V, m = self.d_model, self.d_ff, self.vocab, self.mamba2
+        attn = D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
+        mixer = (D * m.in_dim + m.conv_dim * (m.conv_width + 1)
+                 + 3 * m.n_heads + m.d_ssm + m.d_ssm * D)
+        mlp = (3 if self.act == "swiglu" else 2) * D * F
+        block = attn + mixer + mlp + 2 * D
+        return (V * D * (1 if self.tie_embeddings else 2) + D
+                + self.n_layers * block)
 
     def n_active_params(self) -> int:
         """Active (per-token) parameters — differs from n_params for MoE."""
@@ -217,7 +293,23 @@ class ModelConfig:
         if len(self.attn_pattern) > 1:
             kw["attn_pattern"] = self.attn_pattern[: 2]
             kw["local_window"] = 8
+        if self.mamba2 is not None:
+            kw.update(d_model=256, head_dim=64, d_ff=512, vocab=512,
+                      n_kv_heads=2, mamba2=dataclasses.replace(
+                          self.mamba2, n_heads=4, head_dim=32, n_groups=2,
+                          state_dim=16, chunk=8))
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Mamba2HybridConfig(ModelConfig):
+    """A parallel hybrid: attention and a Mamba-2 mixer side by side in
+    every block (``parallel_ssm``), their outputs, each times its muP
+    multiplier, summed into the residual (hymba's blocks instead average
+    the two outputs' norms). The port's own; the reference has no such
+    arch."""
+    mamba2: Optional[Mamba2Config] = None
+    mup: MuPMultipliers = MuPMultipliers()
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +329,22 @@ ASSIGNED_ARCHS: Tuple[str, ...] = (
     "hymba-1.5b",
 )
 
+# architectures of the port alone: served, tested against the plain
+# reference of the benchmark, outside every loop over the JAX package's
+# archs (no sharding specs, dry run or training parity)
+PORT_ONLY_ARCHS: Tuple[str, ...] = (
+    "falcon-h1-34b",
+)
+
 
 def get_config(arch: str) -> ModelConfig:
-    """Load the full-scale config for an assigned architecture id."""
+    """Load the full-scale config for an architecture id of
+    ``ASSIGNED_ARCHS`` or ``PORT_ONLY_ARCHS``."""
     import importlib
 
-    if arch not in ASSIGNED_ARCHS:
+    if arch not in ASSIGNED_ARCHS + PORT_ONLY_ARCHS:
         raise ValueError(f"unknown architecture {arch!r}; the port carries "
-                         f"{', '.join(ASSIGNED_ARCHS)}")
+                         f"{', '.join(ASSIGNED_ARCHS + PORT_ONLY_ARCHS)}")
     mod_name = "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(mod_name)
     cfg = mod.CONFIG

@@ -68,15 +68,16 @@ def _block_pairs(n_q: int, n_kv: int, block_q: int, block_kv: int,
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, window: int = 0, block_q: int = 512,
-                        block_kv: int = 512, q_offset: int = 0
-                        ) -> torch.Tensor:
+                        block_kv: int = 512, q_offset: int = 0,
+                        kv_start=None) -> torch.Tensor:
     """Online-softmax attention over blocks, visiting only the block pairs
     that can hold unmasked entries.
 
     q: (B, Sq, K, G, d) grouped GQA layout (query head h = k * G + g);
     k, v: (B, Skv, K, d). window: 0 == unlimited, else a causal sliding
     window of that many positions. q_offset: absolute position of q[0]
-    relative to k[0]. Returns (B, Sq, K, G, d) in q's dtype.
+    relative to k[0]. kv_start: None, or (B,) the first key each row may
+    see (its left padding masked). Returns (B, Sq, K, G, d) in q's dtype.
     """
     B, Sq, K, G, d = q.shape
     Skv = k.shape[1]
@@ -115,6 +116,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 mask &= k_pos[None, :] <= q_pos[:, None]
             if window > 0:
                 mask &= k_pos[None, :] > q_pos[:, None] - window
+            if kv_start is not None:
+                mask = (mask[None] & (k_pos[None, None, :]
+                                      >= kv_start[:, None, None]))[
+                    :, None, None]
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -211,11 +216,12 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, *, pos: int,
-                            window: int = 0) -> torch.Tensor:
+                            window: int = 0, kv_start=None) -> torch.Tensor:
     """Single-token attention against a cache.
 
     q: (B, 1, K, G, d); k_cache / v_cache: (B, S, K, d); pos: the number of
-    valid cache entries (the new token's absolute position + 1). q is
+    valid cache entries (the new token's absolute position + 1); kv_start:
+    None, or (B,) each row's first valid entry. q is
     rounded to the cache's dtype and the probabilities to v's before each
     product, as in the reference; the products run in float32.
     """
@@ -228,6 +234,9 @@ def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
     valid = ids < pos
     if window > 0:
         valid &= ids > pos - 1 - window
+    if kv_start is not None:
+        valid = (valid[None] & (ids[None] >= kv_start[:, None]))[
+            :, None, None, None]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
@@ -249,7 +258,7 @@ def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                  head_dim: int, rope_theta, positions=None,
                  causal: bool = True, window: int = 0, block_q: int = 512,
                  block_kv: int = 512, shard=None, layout: str = "grouped",
-                 shard_qblocks=None):
+                 shard_qblocks=None, key_scale=None, kv_start=None):
     """Full-sequence attention (train / prefill). Returns (out, (k, v)),
     the cache entries in the compact (B, S, K, hd) layout whatever the
     layout of the computation.
@@ -258,12 +267,17 @@ def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     can be tensor-sharded when n_kv_heads does not divide the model axis.
     layout="qblock": :func:`qblock_attention`, its query blocks passed
     through ``shard_qblocks``. ``shard`` constrains q, k and v otherwise.
+    ``key_scale`` multiplies the keys before RoPE (Falcon-H1's key
+    multiplier); ``kv_start`` (B,) masks each row's left padding, with
+    ``positions`` (B, S) its own positions (grouped layout).
     """
     B, S, _ = x.shape
     q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
                      head_dim)
     k = _split_kv(x @ params["wk"].to(x.dtype), n_kv_heads, head_dim)
     v = _split_kv(x @ params["wv"].to(x.dtype), n_kv_heads, head_dim)
+    if key_scale is not None:
+        k = k * key_scale
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if rope_theta is not None:
@@ -285,8 +299,9 @@ def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
             .reshape(B, S, n_heads, head_dim)
     if shard is not None:
         q, k, v = shard(q), shard(k), shard(v)
+    kw = {} if kv_start is None else {"kv_start": kv_start}
     out = _attn_local(blockwise_attention, q, k, v, causal=causal,
-                      window=window, block_q=block_q, block_kv=block_kv)
+                      window=window, block_q=block_q, block_kv=block_kv, **kw)
     out = merge_last(out, 3)
     return out @ params["wo"].to(x.dtype), cache
 
@@ -322,16 +337,23 @@ def _write_pos(cache: torch.Tensor, pos: int, val: torch.Tensor) -> None:
 def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, *, pos: int, n_heads: int,
                 n_kv_heads: int, head_dim: int, rope_theta, window: int = 0,
-                shard=None):
+                shard=None, key_scale=None, kv_start=None, rope_pos=None):
     """One-token decode. x: (B, 1, D); cache: (B, S, K, hd), written in
-    place at index ``pos``. Returns (out, cache_k, cache_v)."""
+    place at index ``pos``. Returns (out, cache_k, cache_v).
+
+    ``key_scale``: as in :func:`attn_forward`. ``kv_start`` (B,): each
+    row's first valid cache entry; ``rope_pos`` (B, 1): each row's own
+    position of the new token (``pos`` where None)."""
     B = x.shape[0]
     q = _split_heads(x @ params["wq"].to(x.dtype), n_heads, n_kv_heads,
                      head_dim)
     k = _split_kv(x @ params["wk"].to(x.dtype), n_kv_heads, head_dim)
     v = _split_kv(x @ params["wv"].to(x.dtype), n_kv_heads, head_dim)
+    if key_scale is not None:
+        k = k * key_scale
     if rope_theta is not None:
-        p = torch.full((1,), pos, device=x.device)
+        p = torch.full((1,), pos, device=x.device) if rope_pos is None \
+            else rope_pos
         q = apply_rope(q, p, rope_theta)
         k = apply_rope(k, p, rope_theta)
     _write_pos(cache_k, pos, k[:, 0])
@@ -339,8 +361,9 @@ def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
     ck, cv = cache_k, cache_v
     if shard is not None:
         ck, cv = shard(ck), shard(cv)
+    kw = {} if kv_start is None else {"kv_start": kv_start}
     out = _attn_local(attention_scores_decode, q, ck, cv, pos=pos + 1,
-                      window=window)
+                      window=window, **kw)
     out = merge_last(out, 3)
     return out @ params["wo"].to(x.dtype), cache_k, cache_v
 

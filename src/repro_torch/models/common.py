@@ -96,7 +96,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     freqs = rope_freqs(d, theta, device=x.device)            # (d/2,)
     angles = positions.float()[..., None] * freqs             # (..., S, d/2)
     # broadcast angles over the head dims between S and d
-    for _ in range(x.dim() - angles.dim() - 1):
+    for _ in range(x.dim() + positions.dim() - 2 - angles.dim()):
         angles = angles[..., None, :]
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -6,6 +6,11 @@ Port of ``repro.models.decode``. ``decode_step`` updates the cache in place
 overwritten) and returns it, so callers keep one cache per batch.
 ``cache_struct`` describes the cache with meta tensors (shape and dtype, no
 storage), the analog of the reference's ShapeDtypeStruct tree.
+
+A Mamba-2 hybrid (Falcon-H1) also has ``prefill_ragged``: one
+full-sequence pass over a batch of prompts of different lengths, padded on
+the left, that writes the cache in place and leaves each row where it
+would be alone; its cache carries each row's "start".
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import dtype_of, norm_apply
 from repro_torch.models.transformer import (_norm_kind, _unembed, apply_block,
-                                            attn_runs, embed_lookup, forward,
+                                            attn_runs, embed_tokens, forward,
                                             vlm_segments, xlstm_segments)
 from repro_torch.sharding.specs import merge_last, split_last
 
@@ -34,7 +39,11 @@ def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
       values "xk", "xv" (n_seg, B, n_vision_tokens, K, hd);
     - otherwise {"runs": [...]}, one {"k", "v"} of (n, B, S, K, hd) per run
       of ``attn_runs``, with "mamba_conv" (n, B, W - 1, di) and "mamba_h"
-      (n, B, di, N), float32, for hybrid runs.
+      (n, B, di, N), float32, for hybrid runs; a Mamba-2 hybrid's are
+      "mamba_conv" (n, B, W - 1, conv_dim) and "mamba_h" (n, B, heads,
+      head_dim, state), float32, and its cache has "start" (B,) int64,
+      each row's first real cache index (0 unless a ragged prefill wrote
+      it).
     """
     dt = dtype_of(cfg.dtype)
     f32 = torch.float32
@@ -64,14 +73,21 @@ def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
             "xv": sds((n_seg, B, cfg.n_vision_tokens, K, hd), dt),
         }
     runs = []
+    m2 = cfg.mamba2
     for (n, _, _) in attn_runs(cfg):
         c = {"k": sds((n, B, S, K, hd), dt), "v": sds((n, B, S, K, hd), dt)}
-        if cfg.parallel_ssm:
+        if m2 is not None:
+            c["mamba_conv"] = sds((n, B, m2.conv_width - 1, m2.conv_dim), f32)
+            c["mamba_h"] = sds((n, B, m2.n_heads, m2.head_dim, m2.state_dim),
+                               f32)
+        elif cfg.parallel_ssm:
             di = cfg.ssm.d_inner_mult * cfg.d_model
             W, N = cfg.ssm.conv_width, cfg.ssm.state_dim
             c["mamba_conv"] = sds((n, B, W - 1, di), f32)
             c["mamba_h"] = sds((n, B, di, N), f32)
         runs.append(c)
+    if m2 is not None:
+        return {"runs": runs, "start": sds((B,), torch.int64)}
     return {"runs": runs}
 
 
@@ -100,17 +116,18 @@ def decode_step(params, cache, token: torch.Tensor, pos: int,
 
     Returns (logits (B, 1, V), cache), the cache updated in place.
     """
-    x = embed_lookup(params["embed"], token).to(dtype_of(cfg.dtype))
+    x = embed_tokens(params, cfg, token)
     if cfg.family == "ssm":
         x = _xlstm_decode(params, cache, x, cfg)
     elif cfg.cross_attn_every:
         x = _vlm_decode(params, cache, x, pos, cfg, ctx)
     else:
+        start = cache.get("start")
         for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
                                             attn_runs(cfg)):
             for i, blk in enumerate(run_p):
                 x, _ = apply_block(blk, x, cfg, window=w, theta=th, ctx=ctx,
-                                   mode="decode", pos=pos,
+                                   mode="decode", pos=pos, start=start,
                                    cache={k: t[i] for k, t in run_c.items()})
     x = norm_apply(params["norm_f"], x, _norm_kind(cfg), cfg.norm_eps)
     logits = _unembed(params, cfg, x)
@@ -173,3 +190,35 @@ def prefill(params, batch, cfg: ModelConfig, ctx=None):
     if cfg.encoder_only:
         return logits, None
     return logits, caches
+
+
+def prefill_ragged(params, cache, tokens: torch.Tensor, start: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+    """One full-sequence pass over a ragged batch of a Mamba-2 hybrid.
+
+    tokens: (B, T) integer ids, each row's prompt at its right end and
+    padding (any id) on its left; start: (B,) int64, the index of each
+    row's first real token. Writes into ``cache`` (``init_cache`` with at
+    least T positions) the keys and values at indices 0 .. T - 1, the conv
+    and SSM states after index T - 1, and ``start``; decoding then goes on
+    at ``pos`` = T for every row. Returns (the logits at index T - 1
+    (B, 1, V), cache). Each row's logits and cache entries are those of
+    the row prefilled alone (its padding masked, its positions counted
+    from ``start``)."""
+    if cfg.mamba2 is None:
+        raise ValueError(f"{cfg.arch}: no ragged prefill (a Mamba-2 hybrid "
+                         f"only)")
+    T = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    cache["start"].copy_(start)
+    for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
+                                        attn_runs(cfg)):
+        for i, blk in enumerate(run_p):
+            x, c = apply_block(blk, x, cfg, window=w, theta=th,
+                               mode="prefill", start=start)
+            run_c["k"][i, :, :T] = c["k"]
+            run_c["v"][i, :, :T] = c["v"]
+            run_c["mamba_conv"][i] = c["mamba_conv"]
+            run_c["mamba_h"][i] = c["mamba_h"]
+    x = norm_apply(params["norm_f"], x[:, -1:], "rms", cfg.norm_eps)
+    return _unembed(params, cfg, x), cache

@@ -17,14 +17,20 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, act: str,
     return p
 
 
-def ffn_forward(params, x: torch.Tensor, act: str, shard=None
-                ) -> torch.Tensor:
+def ffn_forward(params, x: torch.Tensor, act: str, shard=None,
+                gate_scale=None, out_scale=None) -> torch.Tensor:
+    """``gate_scale`` multiplies the gate projection before its activation
+    and ``out_scale`` the output (Falcon-H1's MLP multipliers)."""
     f = act_fn(act)
     h = x @ params["wi"].to(x.dtype)
     if is_gated(act):
-        h = f(x @ params["wg"].to(x.dtype)) * h
+        g = x @ params["wg"].to(x.dtype)
+        if gate_scale is not None:
+            g = g * gate_scale
+        h = f(g) * h
     else:
         h = f(h)
     if shard is not None:
         h = shard(h)
-    return h @ params["wo"].to(x.dtype)
+    out = h @ params["wo"].to(x.dtype)
+    return out if out_scale is None else out * out_scale

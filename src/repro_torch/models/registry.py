@@ -35,6 +35,9 @@ class Model(NamedTuple):
     decode_step: Callable[..., Any]
     cache_struct: Callable[[int, int], Any]
     init_cache: Callable[..., Any]
+    # (params, cache, tokens, start) -> (logits, cache): a Mamba-2
+    # hybrid's prefill of a left-padded ragged batch; None otherwise
+    prefill_ragged: Optional[Callable[..., Any]] = None
 
 
 class _OnMeta(TorchFunctionMode):
@@ -81,9 +84,13 @@ def _sharded(fn: Callable, ctx) -> Callable:
 
 
 def build_model(cfg_or_arch, ctx=None) -> Model:
-    """Build a Model for a ModelConfig or an assigned architecture id."""
+    """Build a Model for a ModelConfig or an architecture id of
+    ``ASSIGNED_ARCHS`` or ``PORT_ONLY_ARCHS``. A Mamba-2 hybrid runs
+    unsharded (``ctx`` must be None)."""
     cfg = (cfg_or_arch if isinstance(cfg_or_arch, ModelConfig)
            else get_config(cfg_or_arch))
+    if cfg.mamba2 is not None and ctx is not None:
+        raise ValueError(f"{cfg.arch}: no sharded path")
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg),
@@ -95,6 +102,8 @@ def build_model(cfg_or_arch, ctx=None) -> Model:
                                                cfg=cfg), ctx),
         cache_struct=functools.partial(decode_mod.cache_struct, cfg),
         init_cache=functools.partial(decode_mod.init_cache, cfg),
+        prefill_ragged=(functools.partial(decode_mod.prefill_ragged, cfg=cfg)
+                        if cfg.mamba2 is not None else None),
     )
 
 

@@ -6,7 +6,9 @@ lists of per-layer parameter dicts, in layer order, applied in Python loops:
 
 - uniform attention archs (dense, MoE, hybrid, audio): ``blocks`` is one
   list per run of equal (window, rope_theta) (``attn_runs``), each a list
-  of that run's layers;
+  of that run's layers; a Mamba-2 hybrid (Falcon-H1) is one run, each
+  block with "attn", "mamba2" (``models/mamba2.py``) and "ffn" side by
+  side, its branches summed with their muP multipliers;
 - vlm: ``blocks`` is one list per segment of ``cross_attn_every``
   self-attention layers, and ``cross`` one cross-attention block per
   segment, applied after the segment's layers;
@@ -32,6 +34,7 @@ records (``torch.is_grad_enabled()``); it changes no value.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -43,11 +46,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba2 as mamba2_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import (dtype_of, embed_init, norm_apply,
-                                       norm_init)
+from repro_torch.models.common import (dense_init, dtype_of, embed_init,
+                                       norm_apply, norm_init)
 from repro_torch.sharding.specs import psum
 
 Params = Dict[str, Any]
@@ -98,6 +102,8 @@ def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
     dt = dtype_of(cfg.param_dtype)
     nk = _norm_kind(cfg)
     dev = generator.device
+    if cfg.mamba2 is not None:
+        return _init_mamba2_block(generator, cfg, dt, dev)
     p = {"norm1": norm_init(cfg.d_model, nk, dt, dev),
          "attn": attn.init_attn(generator, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.head_dim, dt)}
@@ -113,6 +119,36 @@ def init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
         p["ffn"] = ffn_mod.init_ffn(generator, cfg.d_model, cfg.d_ff,
                                     cfg.act, dt)
     return p
+
+
+def _init_mamba2_block(generator: torch.Generator, cfg: ModelConfig, dt,
+                       dev) -> dict:
+    """A Falcon-H1 block. Each weight that a muP multiplier scales is
+    drawn at its fan-in scale over that multiplier (the keys over
+    ``key``, the branches' outputs over ``attn_out``, ``ssm_out`` and
+    ``mlp_down``, the gate over ``mlp_gate``), so that random weights give
+    attention scores and branch outputs of unit scale, as a trained
+    model's do."""
+    D, mup = cfg.d_model, cfg.mup
+    r = 1.0 / math.sqrt(D * mup.attn_in)
+    attn_p = {
+        "wq": dense_init(generator, D, cfg.q_dim, dt, scale=r),
+        "wk": dense_init(generator, D, cfg.kv_dim, dt, scale=r / mup.key),
+        "wv": dense_init(generator, D, cfg.kv_dim, dt, scale=r),
+        "wo": dense_init(generator, cfg.q_dim, D, dt, scale=1.0 / (
+            math.sqrt(cfg.q_dim) * mup.attn_out)),
+    }
+    return {
+        "norm1": norm_init(D, "rms", dt, dev),
+        "attn": attn_p,
+        "mamba2": mamba2_mod.init_mamba2(generator, D, cfg.mamba2, mup, dt),
+        "norm2": norm_init(D, "rms", dt, dev),
+        "ffn": {"wi": dense_init(generator, D, cfg.d_ff, dt),
+                "wg": dense_init(generator, D, cfg.d_ff, dt, scale=1.0 / (
+                    math.sqrt(D) * mup.mlp_gate)),
+                "wo": dense_init(generator, cfg.d_ff, D, dt, scale=1.0 / (
+                    math.sqrt(cfg.d_ff) * mup.mlp_down))},
+    }
 
 
 def attn_runs(cfg: ModelConfig):
@@ -134,13 +170,22 @@ def attn_runs(cfg: ModelConfig):
 
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
                 theta, ctx=None, positions=None, mode: str = "train",
-                cache: Optional[dict] = None, pos: Optional[int] = None):
+                cache: Optional[dict] = None, pos: Optional[int] = None,
+                start: Optional[torch.Tensor] = None):
     """One block. mode: train | prefill (full sequence) or decode (one
     token at ``pos``, the cache entry updated in place: keys and values
     written at ``pos``, the Mamba state overwritten).
 
+    ``start`` (B,), a Mamba-2 hybrid's ragged batch only: the index of
+    each row's first real token, its left padding masked (see
+    :func:`apply_mamba2_block`).
+
     Returns (x, cache entry) where the entry is None in train mode.
     """
+    if cfg.mamba2 is not None:
+        return apply_mamba2_block(p, x, cfg, theta=theta,
+                                  positions=positions, mode=mode,
+                                  cache=cache, pos=pos, start=start)
     nk, eps = _norm_kind(cfg), cfg.norm_eps
     h = norm_apply(p["norm1"], x, nk, eps)
     shard = ctx.act_kv if ctx else None
@@ -199,6 +244,61 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
     return x, (new_cache or None)
 
 
+def apply_mamba2_block(p, x: torch.Tensor, cfg: ModelConfig, *, theta,
+                       positions=None, mode: str = "train",
+                       cache: Optional[dict] = None,
+                       pos: Optional[int] = None,
+                       start: Optional[torch.Tensor] = None):
+    """A Falcon-H1 block: one RMS norm, then GQA attention (keys times
+    ``mup.key``) and the Mamba-2 mixer on the same normed input, their
+    outputs times ``attn_out`` and ``ssm_out`` summed into the residual;
+    then an RMS norm and the SwiGLU MLP with its gate and down multipliers.
+
+    Ragged batches are padded on the left: with ``start`` (B,), row b's
+    tokens sit at indices ``start[b]`` .. end, its RoPE positions count
+    from there, attention masks the keys before it, and the mixer zeroes
+    the pad positions' inputs and step sizes, so that every row computes
+    what it would alone. In decode mode ``pos`` is the cache index
+    written, the same for every row. Cache entry: "k", "v" (B, S, K, hd),
+    "mamba_conv" (B, W - 1, conv_dim), "mamba_h" (B, H, P, N)."""
+    mup, eps, m = cfg.mup, cfg.norm_eps, cfg.mamba2
+    h = norm_apply(p["norm1"], x, "rms", eps)
+    new_cache: Dict[str, torch.Tensor] = {}
+    if mode == "decode":
+        rope_pos = None if start is None else (pos - start)[:, None]
+        a_out, ck, cv = attn.attn_decode(
+            p["attn"], h * mup.attn_in, cache["k"], cache["v"], pos=pos,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=theta, key_scale=mup.key,
+            kv_start=start, rope_pos=rope_pos)
+        s_out = mamba2_mod.mamba2_step(p["mamba2"], h, cache["mamba_conv"],
+                                       cache["mamba_h"], m, mup, eps=eps)
+        new_cache = {"k": ck, "v": cv, "mamba_conv": cache["mamba_conv"],
+                     "mamba_h": cache["mamba_h"]}
+    else:
+        valid = None
+        if start is not None:
+            idx = torch.arange(x.shape[1], device=x.device)
+            valid = idx[None] >= start[:, None]
+            positions = (idx[None] - start[:, None]).clamp(min=0)
+        a_out, (k, v) = attn.attn_forward(
+            p["attn"], h * mup.attn_in, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=theta, positions=positions, causal=True,
+            key_scale=mup.key, kv_start=start)
+        s_out, conv, state = mamba2_mod.mamba2_forward(
+            p["mamba2"], h, m, mup, eps=eps, valid=valid)
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v, "mamba_conv": conv,
+                         "mamba_h": state}
+    x = x + (a_out * mup.attn_out + s_out * mup.ssm_out)
+    x = x + ffn_mod.ffn_forward(p["ffn"], norm_apply(p["norm2"], x, "rms",
+                                                     eps),
+                                cfg.act, gate_scale=mup.mlp_gate,
+                                out_scale=mup.mlp_down)
+    return x, (new_cache or None)
+
+
 def ssm_mod_forward_with_state(params, x: torch.Tensor, cfg: ModelConfig):
     """mamba_forward and the exact final state (for prefill)."""
     return (ssm_mod.mamba_forward(params, x, cfg=cfg.ssm),
@@ -254,9 +354,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     reference keeps in float32 stay float32)."""
     dt = dtype_of(cfg.param_dtype)
     dev = generator.device
-    p: Params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, dt)}
-    if not cfg.tie_embeddings:
-        p["unembed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
+    if cfg.mup is not None:
+        # muP: embeddings of unit scale after ``embedding``, logits of unit
+        # scale after ``lm_head``
+        p: Params = {"embed": dense_init(
+            generator, cfg.vocab, cfg.d_model, dt,
+            scale=1.0 / cfg.mup.embedding)}
+        if not cfg.tie_embeddings:
+            p["unembed"] = dense_init(
+                generator, cfg.vocab, cfg.d_model, dt,
+                scale=1.0 / (math.sqrt(cfg.d_model) * cfg.mup.lm_head))
+    else:
+        p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, dt)}
+        if not cfg.tie_embeddings:
+            p["unembed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
     p["norm_f"] = norm_init(cfg.d_model, _norm_kind(cfg), dt, dev)
 
     if cfg.family == "ssm":
@@ -289,14 +400,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
 def _embed_in(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.embedding_inputs:
         return batch["embeds"]
-    return embed_lookup(params["embed"], batch["tokens"]).to(
-        dtype_of(cfg.dtype))
+    return embed_tokens(params, cfg, batch["tokens"])
+
+
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """The input embeddings of integer tokens, times the muP embedding
+    multiplier where the config has one."""
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg.dtype))
+    return x if cfg.mup is None else x * cfg.mup.embedding
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
              ) -> torch.Tensor:
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return x @ w.to(x.dtype).T
+    logits = x @ w.to(x.dtype).T
+    return logits if cfg.mup is None else logits * cfg.mup.lm_head
 
 
 def _stack_caches(caches: List[dict]) -> Dict[str, torch.Tensor]:

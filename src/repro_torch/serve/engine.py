@@ -9,6 +9,17 @@ deployment: MCT plus route scoring on one accelerator).
 A batch is split into a host-side **prepare** stage (token-matrix assembly
 and MCT query encoding, numpy only) and a device-side **execute** stage
 (rule matching on the engine's device, then the decode loop).
+
+The prefill: a model with a ragged prefill (``Model.prefill_ragged``, the
+Mamba-2 hybrids) runs the batch's prompts in one full-sequence pass,
+padded on the left, and decodes from the cache it writes; every other
+model runs the decode step once per prompt position for every row, as the
+reference does. With a ``Tracer`` (``LMServer(tracer=)``, or the
+server's through ``build``) the execute stage emits ``lm.filter``,
+``lm.prefill`` and one ``lm.decode`` a step, on shared clock readings so
+that they tile it; ``prefill_counts`` counts the prefill's real and
+padded tokens. A request marked ``capture`` leaves its MCT answers and
+the float32 logits of every step in ``LMServer.captured``.
 """
 from __future__ import annotations
 
@@ -35,6 +46,9 @@ class Request:
     # MCT filtering stage inputs: connection queries + actual connect times
     mct_queries: List[Dict[str, int]] = field(default_factory=list)
     connect_minutes: List[int] = field(default_factory=list)
+    # keep this request's MCT answers and its float32 logits of every step
+    # in LMServer.captured (for checks against a reference)
+    capture: bool = False
 
 
 @dataclass
@@ -82,11 +96,13 @@ class LMServer:
     layers as causal decode steps. ``params=None`` draws the parameters on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, one tensor at a time.
     ``rule_filter`` is an optional ``ErbiumEngine`` (on its own device).
+    ``tracer`` (a ``serve.trace.Tracer``, None: no span and no extra
+    clock read) receives the execute stage's spans.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, device="cuda",
                  max_seq: int = 256, seed: int = 0, rule_filter=None,
-                 pad_batches: bool = True):
+                 pad_batches: bool = True, tracer=None):
         if cfg.encoder_only:
             raise ValueError(
                 f"{cfg.arch} is encoder-only: it has no decode step to serve")
@@ -101,12 +117,30 @@ class LMServer:
         self.rule_filter = rule_filter
         # pad each batch to the next power of two, as the reference does to
         # bound its compiled variants; rows are independent (masked
-        # attention), so padding never changes per-request results
+        # attention), so padding never changes per-request results. A model
+        # with the ragged prefill has no reference server to mirror, and
+        # eager PyTorch compiles nothing per batch size: its rows are never
+        # padded
         self.pad_batches = pad_batches
         self._dev_params: Dict[torch.device, object] = {}
         # replica workers call execute_prepared from their own threads: one
         # copy of the parameters per device, never two at once
         self._params_lock = threading.Lock()
+        self.tracer = tracer
+        # prefill tokens computed: prompt tokens, and the padding beside
+        # them (rows padded to the longest prompt, and any padding rows)
+        self._count_lock = threading.Lock()
+        self.n_prefill_real = 0
+        self.n_prefill_padded = 0
+        self._n_batches = 0
+        # rid -> {"mct": (decisions, weights, rule ids), "logits": (steps,
+        # V) float32} of the requests marked ``capture``
+        self.captured: Dict[int, dict] = {}
+
+    def prefill_counts(self) -> tuple:
+        """(real, padded) prefill tokens computed so far."""
+        with self._count_lock:
+            return self.n_prefill_real, self.n_prefill_padded
 
     # -- host-side prepare stage ----------------------------------------------
     def prepare_batch(self, requests: Sequence[Request]) -> PreparedBatch:
@@ -147,9 +181,20 @@ class LMServer:
         rs = pb.requests
         if not rs:
             return []
+        tr = self.tracer
+        t_open = time.perf_counter() if tr is not None else None
+        with self._count_lock:
+            self._n_batches += 1
+            batch = self._n_batches
         toks, plens, max_new = pb.toks, pb.plens, pb.max_new
         if self.rule_filter is not None and pb.mct_encoded is not None:
             keep = self._mct_feasible(rs, pb.mct_encoded, pb.mct_owner)
+            if tr is not None:
+                t = time.perf_counter()
+                tr.span("lm.filter", t_open, t, batch=batch,
+                        queries=len(pb.mct_owner),
+                        dropped=len(keep) - sum(keep))
+                t_open = t
             if not all(keep):
                 # slice the prepared rows: no host re-encode here
                 idx = [i for i, ok in enumerate(keep) if ok]
@@ -159,7 +204,8 @@ class LMServer:
                 toks = toks[idx]
                 plens = [plens[i] for i in idx]
                 max_new = max(r.max_new_tokens for r in rs)
-        return self._run_decode(rs, toks, plens, max_new, device=device)
+        return self._run_decode(rs, toks, plens, max_new, device=device,
+                                batch=batch, t_open=t_open)
 
     def generate_batch(self, requests: Sequence[Request]) -> List[Completion]:
         """prepare + execute in one synchronous call, with the MCT filter
@@ -188,7 +234,11 @@ class LMServer:
     @torch.inference_mode()
     def _run_decode(self, rs: List[Request], toks: np.ndarray,
                     plens: List[int], max_new: int,
-                    device=None) -> List[Completion]:
+                    device=None, *, batch: int = 0,
+                    t_open: Optional[float] = None) -> List[Completion]:
+        """Prefill then decode ``rs`` (token rows ``toks`` padded on the
+        right, prompt lengths ``plens``). ``batch`` and ``t_open`` (where
+        the ``lm.prefill`` span starts) are the tracer's."""
         dev = self.device if device is None else resolve_device(device)
         t0 = time.perf_counter()
         B = len(rs)
@@ -201,7 +251,7 @@ class LMServer:
                 f"(longest prompt: {max_p})")
 
         Bp = B
-        if self.pad_batches and B > 1:
+        if self.pad_batches and B > 1 and self.model.prefill_ragged is None:
             Bp = 1 << (B - 1).bit_length()      # next power of two
         if Bp != B:
             toks = np.concatenate(
@@ -209,20 +259,44 @@ class LMServer:
 
         params = self._params_on(dev)
         cache = self.model.init_cache(Bp, total, device=dev)
-        toks_d = torch.as_tensor(toks, dtype=torch.long).to(dev)
-        # prefill through the decode step, token by token up to the longest
-        # prompt for every row (a shorter prompt's first generated token
-        # follows its zero padding, as in the reference)
         generated = [[] for _ in range(B)]
-        last_logits = None
-        for pos in range(max_p):
-            last_logits, cache = self.model.decode_step(
-                params, cache, toks_d[:, pos:pos + 1], pos)
+        if self.model.prefill_ragged is not None:
+            # one pass over the prompts, each at the right end of its row
+            # (left padding, masked); padding rows are whole zero rows
+            left = np.zeros((Bp, max_p), np.int32)
+            start = np.zeros(Bp, np.int64)
+            for i, n in enumerate(plens):
+                left[i, max_p - n:] = toks[i, :n]
+                start[i] = max_p - n
+            last_logits, cache = self.model.prefill_ragged(
+                params, cache, torch.as_tensor(left, dtype=torch.long).to(dev),
+                torch.as_tensor(start).to(dev))
+        else:
+            toks_d = torch.as_tensor(toks, dtype=torch.long).to(dev)
+            # prefill through the decode step, token by token up to the
+            # longest prompt for every row (a shorter prompt's first
+            # generated token follows its zero padding, as in the reference)
+            last_logits = None
+            for pos in range(max_p):
+                last_logits, cache = self.model.decode_step(
+                    params, cache, toks_d[:, pos:pos + 1], pos)
         synchronize(dev)
         t1 = time.perf_counter()
+        real = sum(plens)
+        with self._count_lock:
+            self.n_prefill_real += real
+            self.n_prefill_padded += Bp * max_p - real
 
+        cap = [i for i, r in enumerate(rs) if r.capture]
+        caps = [last_logits[cap, -1].float()] if cap else []
         cur = last_logits[:, -1].argmax(dim=-1)
         cur_h = cur.cpu().numpy()
+        tr = self.tracer
+        if tr is not None:
+            t_prev = time.perf_counter()
+            tr.span("lm.prefill", t0 if t_open is None else t_open, t_prev,
+                    batch=batch, rows=B, real_tokens=real,
+                    padded_tokens=Bp * max_p - real, lens=list(plens))
         for s in range(max_new):
             for i in range(B):
                 if s < rs[i].max_new_tokens:
@@ -232,9 +306,22 @@ class LMServer:
                 break
             logits, cache = self.model.decode_step(params, cache,
                                                    cur[:, None], pos)
+            if cap:
+                caps.append(logits[cap, -1].float())
             cur = logits[:, -1].argmax(dim=-1)
             cur_h = cur.cpu().numpy()
+            if tr is not None:
+                t = time.perf_counter()
+                tr.span("lm.decode", t_prev, t, batch=batch, rows=B,
+                        pos=pos)
+                t_prev = t
         t2 = time.perf_counter()
+        if cap:
+            got = torch.stack(caps, dim=1).cpu().numpy()
+            with self._count_lock:
+                for k, i in enumerate(cap):
+                    self.captured.setdefault(rs[i].rid, {})["logits"] = \
+                        got[k]
 
         return [Completion(rid=r.rid, tokens=np.asarray(g, np.int32),
                            prefill_ms=(t1 - t0) * 1e3,
@@ -257,8 +344,17 @@ class LMServer:
         encoded on the host into one kernel input; match on the engine's
         device, bring the decisions back with one copy, then drop requests
         with an infeasible connection (connect time < MCT)."""
-        dec, _, _ = self.rule_filter.match(encoded)
+        dec, w, rid = self.rule_filter.match(encoded)
         dec = dec.cpu().numpy()
+        cap = [i for i, r in enumerate(rs) if r.capture]
+        if cap:
+            w, rid = w.cpu().numpy(), rid.cpu().numpy()
+            own = np.asarray(owner)
+            with self._count_lock:
+                for i in cap:
+                    j = own == i
+                    self.captured.setdefault(rs[i].rid, {})["mct"] = \
+                        (dec[j].copy(), w[j].copy(), rid[j].copy())
         feasible = [True] * len(rs)
         pos = {i: 0 for i in range(len(rs))}
         for j, i in enumerate(owner):

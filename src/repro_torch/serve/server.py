@@ -496,6 +496,8 @@ def build(cfg: ServeConfig) -> Server:
                                             routing=cfg.routing,
                                             delay=cfg.delay, **knobs)
         srv = Server(group, cfg)
+        # the engine's execute spans go onto the server's one timeline
+        server.tracer = srv.tracer
     if cfg.warmup:
         srv.warmup() if cfg.warmup is True else srv.warmup(tuple(cfg.warmup))
     return srv

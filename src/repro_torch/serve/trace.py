@@ -21,7 +21,10 @@ The MCT path emits into the same ring when given a tracer
 each but the queue wait with the worker thread's CPU time (``cpu_us``),
 then ``handoff`` back to the caller; and ``match``, the host side of
 ``ErbiumEngine.match``, tiled by ``lane.upload -> lane.sort -> lane.launch
--> lane.lookup`` (``Tracer.lap``).
+-> lane.lookup`` (``Tracer.lap``). ``LMServer`` emits its execute stage:
+``lm.filter`` (the MCT stage: queries, dropped), ``lm.prefill`` (rows,
+real and padded tokens, prompt lengths) and ``lm.decode`` a step (rows,
+cache position), all with the batch's serial ``batch``.
 
 Design rules:
 
@@ -69,6 +72,7 @@ LIFECYCLE_STAGES = (
     "cache_store", "controller",
     "collect", "handoff", "match",
     "lane.upload", "lane.sort", "lane.launch", "lane.lookup",
+    "lm.filter", "lm.prefill", "lm.decode",
 )
 
 
@@ -419,6 +423,7 @@ _TID_HOST = 1
 _TID_LIFECYCLE = 2
 _TID_CONTROLLER = 3
 _TID_ENGINE = 4
+_TID_LM = 5
 _TID_REPLICA_BASE = 10
 _TID_WORKER_BASE = 100
 _PID = 1
@@ -430,6 +435,8 @@ def _lane_of(s: Span) -> tuple:
         return _TID_WORKER_BASE + w, f"wrapper-worker-{w}"
     if s.stage == "match" or s.stage.startswith("lane."):
         return _TID_ENGINE, "engine-match"
+    if s.stage.startswith("lm."):
+        return _TID_LM, "lm-execute"
     if s.stage in ("device_execute", "dispatch"):
         r = s.replica if s.replica is not None else 0
         return _TID_REPLICA_BASE + r, f"replica-{r}"

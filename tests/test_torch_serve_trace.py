@@ -533,11 +533,13 @@ def test_sync_span_sequence_equals_reference(case):
 
 def test_trace_reexports_equal_reference():
     # the reference's stages in its order, then the port's MCT-path stages
+    # and LMServer's execute stages
     n = len(JT.LIFECYCLE_STAGES)
     assert PT.LIFECYCLE_STAGES[:n] == JT.LIFECYCLE_STAGES
     assert PT.LIFECYCLE_STAGES[n:] == (
         "collect", "handoff", "match",
-        "lane.upload", "lane.sort", "lane.launch", "lane.lookup")
+        "lane.upload", "lane.sort", "lane.launch", "lane.lookup",
+        "lm.filter", "lm.prefill", "lm.decode")
     assert set(PT.__all__) == set(JT.__all__)
     import repro.capacity as JC
     import repro_torch.capacity as PC
