@@ -10,7 +10,9 @@ storage), the analog of the reference's ShapeDtypeStruct tree.
 A Mamba-2 hybrid (Falcon-H1) also has ``prefill_ragged``: one
 full-sequence pass over a batch of prompts of different lengths, padded on
 the left, that writes the cache in place and leaves each row where it
-would be alone; its cache carries each row's "start".
+would be alone; its cache carries each row's "start". ``cache_rows`` is a
+view of a range of the cache's rows, so that several such passes (each at
+its own ``offset``) can fill one cache.
 """
 from __future__ import annotations
 
@@ -89,6 +91,14 @@ def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
     if m2 is not None:
         return {"runs": runs, "start": sds((B,), torch.int64)}
     return {"runs": runs}
+
+
+def cache_rows(cache: Dict[str, Any], r0: int, r1: int) -> Dict[str, Any]:
+    """Rows ``r0 .. r1 - 1`` of a Mamba-2 hybrid's cache as views: what is
+    written through them is written into ``cache``."""
+    return {"runs": [{k: t[:, r0:r1] for k, t in run.items()}
+                     for run in cache["runs"]],
+            "start": cache["start"][r0:r1]}
 
 
 def _zeros_like_meta(tree, dev: torch.device):
@@ -193,31 +203,33 @@ def prefill(params, batch, cfg: ModelConfig, ctx=None):
 
 
 def prefill_ragged(params, cache, tokens: torch.Tensor, start: torch.Tensor,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
+                   cfg: ModelConfig, offset: int = 0
+                   ) -> Tuple[torch.Tensor, Any]:
     """One full-sequence pass over a ragged batch of a Mamba-2 hybrid.
 
     tokens: (B, T) integer ids, each row's prompt at its right end and
     padding (any id) on its left; start: (B,) int64, the index of each
-    row's first real token. Writes into ``cache`` (``init_cache`` with at
-    least T positions) the keys and values at indices 0 .. T - 1, the conv
-    and SSM states after index T - 1, and ``start``; decoding then goes on
-    at ``pos`` = T for every row. Returns (the logits at index T - 1
-    (B, 1, V), cache). Each row's logits and cache entries are those of
-    the row prefilled alone (its padding masked, its positions counted
-    from ``start``)."""
+    row's first real token. Writes into ``cache`` (``init_cache``, or
+    ``cache_rows`` of one, with at least ``offset`` + T positions) the keys
+    and values at indices ``offset`` .. ``offset`` + T - 1, the conv and
+    SSM states after the last, and ``start`` + ``offset``; decoding then
+    goes on at ``pos`` = ``offset`` + T for every row. Returns (the logits
+    at index T - 1 (B, 1, V), cache). Each row's logits and cache entries
+    are those of the row prefilled alone (its padding masked, its
+    positions counted from ``start``), wherever ``offset`` puts it."""
     if cfg.mamba2 is None:
         raise ValueError(f"{cfg.arch}: no ragged prefill (a Mamba-2 hybrid "
                          f"only)")
     T = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
-    cache["start"].copy_(start)
+    cache["start"].copy_(start + offset)
     for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
                                         attn_runs(cfg)):
         for i, blk in enumerate(run_p):
             x, c = apply_block(blk, x, cfg, window=w, theta=th,
                                mode="prefill", start=start)
-            run_c["k"][i, :, :T] = c["k"]
-            run_c["v"][i, :, :T] = c["v"]
+            run_c["k"][i, :, offset:offset + T] = c["k"]
+            run_c["v"][i, :, offset:offset + T] = c["v"]
             run_c["mamba_conv"][i] = c["mamba_conv"]
             run_c["mamba_h"][i] = c["mamba_h"]
     x = norm_apply(params["norm_f"], x[:, -1:], "rms", cfg.norm_eps)

@@ -23,8 +23,8 @@ then ``handoff`` back to the caller; and ``match``, the host side of
 ``ErbiumEngine.match``, tiled by ``lane.upload -> lane.sort -> lane.launch
 -> lane.lookup`` (``Tracer.lap``). ``LMServer`` emits its execute stage:
 ``lm.filter`` (the MCT stage: queries, dropped), ``lm.prefill`` (rows,
-real and padded tokens, prompt lengths) and ``lm.decode`` a step (rows,
-cache position), all with the batch's serial ``batch``.
+real and padded tokens, prompt lengths, passes) and ``lm.decode`` a step
+(rows, cache position), all with the batch's serial ``batch``.
 
 Design rules:
 

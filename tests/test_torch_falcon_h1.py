@@ -8,12 +8,15 @@ of the port's parameters is tested too. Float32 rounding is all that may
 differ: logits within 1e-4 of the largest.
 
 Also: the chunked SSD against the plain recurrence, the ragged prefill
-(each row equal to itself alone), ``LMServer`` behind a 2,000-rule filter,
-its spans and counters, the published parameter counts, and the reference
-against transformers' ``FalconH1ForCausalLM`` where transformers is
-installed.
+(each row equal to itself alone, and several passes at their offsets equal
+to one), ``LMServer`` behind a 2,000-rule filter, its length-sorted prefill
+groups (the split against a brute-force search, the result against one
+pass), its spans and counters, the published parameter counts, and the
+reference against transformers' ``FalconH1ForCausalLM`` where transformers
+is installed.
 """
 import dataclasses
+import itertools
 import sys
 from pathlib import Path
 
@@ -31,7 +34,9 @@ from repro_torch.configs.base import (  # noqa: E402
 from repro_torch.configs.falcon_h1_34b import (CONFIG, PUBLISHED,  # noqa: E402
                                                from_hf)
 from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models.decode import cache_rows  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 SMALL = dict(PUBLISHED, hidden_size=256, num_attention_heads=4,
              num_key_value_heads=2, head_dim=64, intermediate_size=512,
@@ -146,6 +151,134 @@ def test_ragged_rows_equal_alone(small):
         t1, l1 = _generate(model, params, [r], 4)
         assert torch.equal(toks[i], t1[0])
         assert _rel(logits[i], l1[0]) < 1e-5
+
+
+def _left(rows):
+    """Rows left-padded to the longest: (tokens (B, P), start (B,))."""
+    P = max(len(r) for r in rows)
+    left = torch.zeros(len(rows), P, dtype=torch.long)
+    for i, r in enumerate(rows):
+        left[i, P - len(r):] = torch.as_tensor(r)
+    return left, torch.tensor([P - len(r) for r in rows])
+
+
+def test_prefill_ragged_groups_at_offsets_equal_one_pass(small):
+    cfg, model, params = small
+    rng = np.random.default_rng(6)
+    lens = (2, 5, 9, 9, 17, 26, 33)
+    rows = [list(rng.integers(0, 512, n)) for n in lens]
+    left, start = _left(rows)
+    P = left.shape[1]
+    with torch.no_grad():
+        one = model.init_cache(len(rows), 48, device="cpu")
+        want, one = model.prefill_ragged(params, one, left, start)
+        split = model.init_cache(len(rows), 48, device="cpu")
+        got = torch.empty_like(want)
+        for r0, r1 in [(4, 7), (0, 2), (2, 4)]:
+            off = P - lens[r1 - 1]
+            lg, _ = model.prefill_ragged(
+                params, cache_rows(split, r0, r1), left[r0:r1, off:],
+                start[r0:r1] - off, offset=off)
+            got[r0:r1] = lg
+    assert _rel(got, want) < 1e-5
+    assert torch.equal(split["start"], one["start"])
+    assert torch.equal(split["start"], start)
+    for a, b in zip(split["runs"], one["runs"]):
+        for i, n in enumerate(lens):
+            # the keys and values of the row's own tokens, where one pass
+            # puts them; the padding before them is masked in decode
+            for k in ("k", "v"):
+                assert _rel(a[k][:, i, P - n:P], b[k][:, i, P - n:P]) < 1e-5
+                assert not a[k][:, i, P:].any()
+        for k in ("mamba_conv", "mamba_h"):
+            assert _rel(a[k], b[k]) < 1e-5
+
+
+def _brute_force_cost(lens, cost):
+    n = len(lens)
+    best = float("inf")
+    for cuts in itertools.product((False, True), repeat=n - 1):
+        ends = [i + 1 for i, c in enumerate(cuts) if c] + [n]
+        total, r0 = 0.0, 0
+        for r1 in ends:
+            total += (r1 - r0) * lens[r1 - 1] + cost
+            r0 = r1
+        best = min(best, total)
+    return best
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_prefill_groups_is_the_best_contiguous_split(n):
+    rng = np.random.default_rng(n)
+    for cost in (0.0, 7.0, 60.0, serve_engine.PASS_COST_TOKENS):
+        for _ in range(6):
+            lens = sorted(int(x) for x in np.exp(
+                rng.uniform(np.log(32), np.log(384), n)))
+            groups = serve_engine.prefill_groups(lens, cost)
+            assert groups[0][0] == 0 and groups[-1][1] == n
+            assert all(a[1] == b[0] and a[0] < a[1]
+                       for a, b in zip(groups, groups[1:] + [(n, n + 1)]))
+            got = sum((r1 - r0) * lens[r1 - 1] + cost for r0, r1 in groups)
+            assert got == pytest.approx(_brute_force_cost(lens, cost))
+
+
+@pytest.mark.parametrize("cost", [0.0, 295.0])
+def test_prefill_groups_equal_lengths_one_group(cost):
+    assert serve_engine.prefill_groups([7] * 5, cost) == [(0, 5)]
+    assert serve_engine.prefill_groups([3], cost) == [(0, 1)]
+    # a pass costs at least its weight read
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    assert serve_engine.PASS_COST_TOKENS >= PEAK_FLOPS / HBM_BW
+
+
+def _serve_batch(cfg, params, monkeypatch, cost, lens):
+    from repro_torch.serve import LMServer, Request
+    from repro_torch.serve.trace import Tracer
+    monkeypatch.setattr(serve_engine, "PASS_COST_TOKENS", cost)
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=10 + i, tokens=rng.integers(1, 512, n).astype(
+        np.int32), max_new_tokens=3 + i % 3, capture=True)
+        for i, n in enumerate(lens)]
+    tr = Tracer()
+    srv = LMServer(cfg, params, device="cpu", max_seq=48, tracer=tr)
+    outs = srv.generate_batch(reqs)
+    return srv, outs, [s for s in tr.spans() if s.stage == "lm.prefill"]
+
+
+def test_run_decode_in_groups_equals_one_pass(small, monkeypatch):
+    cfg, model, params = small
+    lens = [21, 4, 30, 9, 4, 16, 27]
+    srv1, one, _ = _serve_batch(cfg, params, monkeypatch, 1e9, lens)
+    srv, split, _ = _serve_batch(cfg, params, monkeypatch, 0.0, lens)
+    assert srv1.n_prefill_passes == 1
+    assert srv.n_prefill_passes == len(set(lens)) >= 2
+    assert [c.rid for c in split] == [c.rid for c in one] == \
+        [10 + i for i in range(len(lens))]
+    for a, b in zip(split, one):
+        assert a.tokens.tolist() == b.tokens.tolist()
+        assert len(a.tokens) == 3 + (a.rid - 10) % 3
+        got = srv.captured[a.rid]["logits"]
+        want = srv1.captured[a.rid]["logits"]
+        assert got.shape == want.shape
+        assert _rel(torch.as_tensor(got), torch.as_tensor(want)) < 1e-5
+
+
+def test_prefill_counts_and_span_follow_the_split(small, monkeypatch):
+    cfg, model, params = small
+    lens = [12, 3, 12, 30, 5, 29]
+    srv, outs, spans = _serve_batch(cfg, params, monkeypatch, 10.0, lens)
+    s = sorted(lens)
+    groups = serve_engine.prefill_groups(s, 10.0)
+    assert len(groups) >= 2
+    computed = sum((r1 - r0) * s[r1 - 1] for r0, r1 in groups)
+    assert srv.prefill_counts() == (sum(lens), computed - sum(lens))
+    assert srv.n_prefill_passes == len(groups)
+    (p,) = spans
+    assert p.meta["rows"] == len(lens) and p.meta["lens"] == lens
+    assert p.meta["real_tokens"] == sum(lens)
+    assert p.meta["padded_tokens"] == computed - sum(lens)
+    assert p.meta["passes"] == len(groups)
+    assert computed < len(lens) * max(lens)
 
 
 @pytest.fixture(scope="module")
