@@ -799,9 +799,8 @@ def serve_groups(srv, groups, label: str):
         row = dict(requests=len(g), kept=len(out), wall_ms=wall,
                    tokens=n_tok)
         if out:
-            pad = 1 << (len(out) - 1).bit_length()
             pre, dec_ms = out[0].prefill_ms, out[0].decode_ms
-            row.update(padded=pad, prefill_ms=pre, decode_ms=dec_ms,
+            row.update(prefill_ms=pre, decode_ms=dec_ms,
                        tokens_per_s=n_tok / ((pre + dec_ms) / 1e3),
                        prompt_steps=max(len(r.tokens) for r in g
                                         if r.rid in {c.rid for c in out}))

@@ -7,17 +7,22 @@ overwritten) and returns it, so callers keep one cache per batch.
 ``cache_struct`` describes the cache with meta tensors (shape and dtype, no
 storage), the analog of the reference's ShapeDtypeStruct tree.
 
-A Mamba-2 hybrid (Falcon-H1) also has ``prefill_ragged``: one
-full-sequence pass over a batch of prompts of different lengths, padded on
-the left, that writes the cache in place and leaves each row where it
-would be alone; its cache carries each row's "start". ``cache_rows`` is a
-view of a range of the cache's rows, so that several such passes (each at
-its own ``offset``) can fill one cache.
+``prefill_prompts`` is how a batch of prompts becomes a decode cache, for
+every decoder arch: every row's last prompt token at index P - 1 (P the
+longest prompt), so that decoding goes on at ``pos`` = P. A Mamba-2 hybrid
+(Falcon-H1) sorts its rows by length, splits them into groups
+(``prefill_groups``) and runs one ``prefill_ragged`` a group: a
+full-sequence pass over the group's prompts, padded on the left to its own
+longest, written through an index of cache rows at its own offset, so that
+each row is where it would be alone (its cache carries each row's
+"start"). Every other arch runs ``decode_step`` once per prompt position
+for every row, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -29,6 +34,15 @@ from repro_torch.models.transformer import (_norm_kind, _unembed, apply_block,
                                             attn_runs, embed_tokens, forward,
                                             vlm_segments, xlstm_segments)
 from repro_torch.sharding.specs import merge_last, split_last
+
+# A ragged prefill pass's fixed cost, in tokens of prefill. Reading every
+# weight once costs launch.roofline's PEAK_FLOPS / HBM_BW (~295) tokens of
+# bf16 compute, but the host sets a larger floor: on one H100, one pass of
+# 36 Falcon-H1-34B layers takes 115-150 ms to issue however few its tokens,
+# the device time of ~1,500 prefill tokens. A pass costs the larger of the
+# two clocks, not their sum, so for batches of 16-42 prompts of 32-384
+# tokens the split that finishes first lies at 700-1,000 (PERF.md §6)
+PASS_COST_TOKENS = 800
 
 
 def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
@@ -91,14 +105,6 @@ def cache_struct(cfg: ModelConfig, batch: int, seq_len: int
     if m2 is not None:
         return {"runs": runs, "start": sds((B,), torch.int64)}
     return {"runs": runs}
-
-
-def cache_rows(cache: Dict[str, Any], r0: int, r1: int) -> Dict[str, Any]:
-    """Rows ``r0 .. r1 - 1`` of a Mamba-2 hybrid's cache as views: what is
-    written through them is written into ``cache``."""
-    return {"runs": [{k: t[:, r0:r1] for k, t in run.items()}
-                     for run in cache["runs"]],
-            "start": cache["start"][r0:r1]}
 
 
 def _zeros_like_meta(tree, dev: torch.device):
@@ -203,34 +209,113 @@ def prefill(params, batch, cfg: ModelConfig, ctx=None):
 
 
 def prefill_ragged(params, cache, tokens: torch.Tensor, start: torch.Tensor,
-                   cfg: ModelConfig, offset: int = 0
+                   cfg: ModelConfig, offset: int = 0,
+                   rows: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Any]:
     """One full-sequence pass over a ragged batch of a Mamba-2 hybrid.
 
-    tokens: (B, T) integer ids, each row's prompt at its right end and
-    padding (any id) on its left; start: (B,) int64, the index of each
-    row's first real token. Writes into ``cache`` (``init_cache``, or
-    ``cache_rows`` of one, with at least ``offset`` + T positions) the keys
-    and values at indices ``offset`` .. ``offset`` + T - 1, the conv and
-    SSM states after the last, and ``start`` + ``offset``; decoding then
-    goes on at ``pos`` = ``offset`` + T for every row. Returns (the logits
-    at index T - 1 (B, 1, V), cache). Each row's logits and cache entries
-    are those of the row prefilled alone (its padding masked, its
-    positions counted from ``start``), wherever ``offset`` puts it."""
+    tokens: (b, T) integer ids, each row's prompt at its right end and
+    padding (any id) on its left; start: (b,) int64, the index of each
+    row's first real token. Writes into the cache rows ``rows`` ((b,)
+    int64; None: every row of the cache, b of them) of ``cache``
+    (``init_cache``, with at least ``offset`` + T positions) the keys and
+    values at indices ``offset`` .. ``offset`` + T - 1, the conv and SSM
+    states after the last, and ``start`` + ``offset``; decoding then goes
+    on at ``pos`` = ``offset`` + T for those rows. Returns (the logits at
+    index T - 1 (b, 1, V), cache). Each row's logits and cache entries are
+    those of the row prefilled alone (its padding masked, its positions
+    counted from ``start``), wherever ``offset`` and ``rows`` put it."""
     if cfg.mamba2 is None:
         raise ValueError(f"{cfg.arch}: no ragged prefill (a Mamba-2 hybrid "
                          f"only)")
     T = tokens.shape[1]
+    if rows is None:
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
     x = embed_tokens(params, cfg, tokens)
-    cache["start"].copy_(start + offset)
+    cache["start"].index_copy_(0, rows, start + offset)
     for run_p, run_c, (n, w, th) in zip(params["blocks"], cache["runs"],
                                         attn_runs(cfg)):
         for i, blk in enumerate(run_p):
             x, c = apply_block(blk, x, cfg, window=w, theta=th,
                                mode="prefill", start=start)
-            run_c["k"][i, :, offset:offset + T] = c["k"]
-            run_c["v"][i, :, offset:offset + T] = c["v"]
-            run_c["mamba_conv"][i] = c["mamba_conv"]
-            run_c["mamba_h"][i] = c["mamba_h"]
+            for k, dst in (("k", run_c["k"][i, :, offset:offset + T]),
+                           ("v", run_c["v"][i, :, offset:offset + T]),
+                           ("mamba_conv", run_c["mamba_conv"][i]),
+                           ("mamba_h", run_c["mamba_h"][i])):
+                dst.index_copy_(0, rows, c[k].to(dst.dtype))
     x = norm_apply(params["norm_f"], x[:, -1:], "rms", cfg.norm_eps)
     return _unembed(params, cfg, x), cache
+
+
+def prefill_groups(lens: Sequence[int], cost: float
+                   ) -> List[Tuple[int, int]]:
+    """Split prompt lengths sorted in ascending order into contiguous
+    groups ``[(r0, r1), ...]`` that minimise the tokens a padded prefill
+    computes, sum over groups of rows x the group's longest prompt, plus
+    ``cost`` a group: an exact dynamic program over the split points,
+    O(len(lens) ** 2). Equal lengths give one group."""
+    n = len(lens)
+    best = [0.0] + [float("inf")] * n     # best[j]: rows 0 .. j - 1 split
+    cut = [0] * (n + 1)
+    for j in range(1, n + 1):
+        for i in range(j):
+            c = best[i] + (j - i) * lens[j - 1] + cost
+            if c < best[j]:
+                best[j], cut[j] = c, i
+    groups, j = [], n
+    while j > 0:
+        groups.append((cut[j], j))
+        j = cut[j]
+    return groups[::-1]
+
+
+def prefill_prompts(params, cache, toks: np.ndarray, lens: Sequence[int],
+                    cfg: ModelConfig, ctx=None
+                    ) -> Tuple[torch.Tensor, int, int]:
+    """Fill ``cache`` (``init_cache`` of B rows) with a batch of prompts.
+
+    toks: (B, >= P) host integer ids, row i's prompt in its first
+    ``lens[i]`` columns and zeros after, P = max(lens). Every row's last
+    prompt token ends at cache index P - 1; decoding goes on at ``pos`` =
+    P. Rows keep the caller's order. Returns (the logits of each row's
+    last prompt position (B, 1, V), the passes run, the prefill tokens
+    computed, real and padding).
+
+    A Mamba-2 hybrid: one ``prefill_ragged`` a group of ``prefill_groups``
+    over the rows sorted by length (``PASS_COST_TOKENS`` a pass), each
+    padded on the left to its own longest prompt and written at offset P -
+    that, the longest group first so that the host can queue the others
+    while the card runs it. Every other arch: ``decode_step`` over every
+    position for every row, a shorter prompt running on into its zero
+    padding, as in the reference."""
+    B, P = len(lens), max(lens)
+    dev = params["embed"].device
+    if cfg.mamba2 is None:
+        toks_d = torch.as_tensor(toks[:, :P], dtype=torch.long).to(dev)
+        last = None
+        for pos in range(P):
+            last, cache = decode_step(params, cache, toks_d[:, pos:pos + 1],
+                                      pos, cfg, ctx)
+        return last, P, B * P
+    order = sorted(range(B), key=lens.__getitem__)
+    s = [lens[i] for i in order]
+    # the rows in length order, each prompt at the right end of its row
+    left = np.zeros((B, P), np.int32)
+    for k, (i, n) in enumerate(zip(order, s)):
+        left[k, P - n:] = toks[i, :n]
+    left_d = torch.as_tensor(left, dtype=torch.long).to(dev)
+    start_d = torch.as_tensor(P - np.asarray(s, np.int64)).to(dev)
+    order_d = torch.as_tensor(order, dtype=torch.long).to(dev)
+    groups = prefill_groups(s, PASS_COST_TOKENS)
+    last = None
+    for r0, r1 in reversed(groups):
+        off = P - s[r1 - 1]
+        rows = order_d[r0:r1]
+        lg, _ = prefill_ragged(params, cache, left_d[r0:r1, off:],
+                               start_d[r0:r1] - off, cfg, offset=off,
+                               rows=rows)
+        if last is None:
+            last = lg.new_empty((B,) + lg.shape[1:])
+        last.index_copy_(0, rows, lg)
+    computed = sum((r1 - r0) * s[r1 - 1] for r0, r1 in groups)
+    return last, len(groups), computed

@@ -32,12 +32,12 @@ class Model(NamedTuple):
     loss: Callable[..., torch.Tensor]
     logits: Callable[..., torch.Tensor]
     prefill: Callable[..., Any]
+    # (params, cache, toks, lens) -> (last logits, passes, tokens
+    # computed): a batch of prompts into a decode cache
+    prefill_prompts: Callable[..., Any]
     decode_step: Callable[..., Any]
     cache_struct: Callable[[int, int], Any]
     init_cache: Callable[..., Any]
-    # (params, cache, tokens, start) -> (logits, cache): a Mamba-2
-    # hybrid's prefill of a left-padded ragged batch; None otherwise
-    prefill_ragged: Optional[Callable[..., Any]] = None
 
 
 class _OnMeta(TorchFunctionMode):
@@ -98,12 +98,12 @@ def build_model(cfg_or_arch, ctx=None) -> Model:
         logits=_sharded(functools.partial(tf_mod.logits_fn, cfg=cfg), ctx),
         prefill=_sharded(functools.partial(decode_mod.prefill, cfg=cfg),
                          ctx),
+        prefill_prompts=_sharded(functools.partial(
+            decode_mod.prefill_prompts, cfg=cfg), ctx),
         decode_step=_sharded(functools.partial(decode_mod.decode_step,
                                                cfg=cfg), ctx),
         cache_struct=functools.partial(decode_mod.cache_struct, cfg),
         init_cache=functools.partial(decode_mod.init_cache, cfg),
-        prefill_ragged=(functools.partial(decode_mod.prefill_ragged, cfg=cfg)
-                        if cfg.mamba2 is not None else None),
     )
 
 

@@ -10,26 +10,23 @@ A batch is split into a host-side **prepare** stage (token-matrix assembly
 and MCT query encoding, numpy only) and a device-side **execute** stage
 (rule matching on the engine's device, then the decode loop).
 
-The prefill: a model with a ragged prefill (``Model.prefill_ragged``, the
-Mamba-2 hybrids) sorts the batch's rows by prompt length, splits them into
-contiguous groups (``prefill_groups``) and runs one full-sequence pass a
-group, each padded on the left to its own longest prompt and written into
-the one decode cache so that every row ends at the batch's longest prompt;
-then it decodes from that cache. Every other model runs the decode step
-once per prompt position for every row, as the reference does. With a
-``Tracer`` (``LMServer(tracer=)``, or the server's through ``build``) the
-execute stage emits ``lm.filter``, ``lm.prefill`` and one ``lm.decode`` a
-step, on shared clock readings so that they tile it; ``prefill_counts``
-counts the prefill's real and padded tokens, ``n_prefill_passes`` its
-passes. A request marked ``capture`` leaves its MCT answers and the
-float32 logits of every step in ``LMServer.captured``.
+The prefill belongs to the model: the execute stage makes a decode cache
+for the batch, has ``Model.prefill_prompts`` fill it with the prompts (the
+model chooses how, and counts its passes and the tokens they compute),
+then decodes from it. With a ``Tracer`` (``LMServer(tracer=)``, or the
+server's through ``build``) the execute stage emits ``lm.filter``,
+``lm.prefill`` and one ``lm.decode`` a step, on shared clock readings so
+that they tile it; ``prefill_counts`` counts the prefill's real and padded
+tokens, ``n_prefill_passes`` its passes. A request marked ``capture``
+leaves its MCT answers and the float32 logits of every step in
+``LMServer.captured``.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,17 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aggregator import DeadlineAggregator
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.models.decode import cache_rows
 from repro_torch.models.registry import build_model
-
-# A ragged prefill pass's fixed cost, in tokens of prefill. Reading every
-# weight once costs launch.roofline's PEAK_FLOPS / HBM_BW (~295) tokens of
-# bf16 compute, but the host sets a larger floor: on one H100, one pass of
-# 36 Falcon-H1-34B layers takes 115-150 ms to issue however few its tokens,
-# the device time of ~1,500 prefill tokens. A pass costs the larger of the
-# two clocks, not their sum, so for batches of 16-42 prompts of 32-384
-# tokens the split that finishes first lies at 700-1,000 (PERF.md §6)
-PASS_COST_TOKENS = 800
 
 
 @dataclass
@@ -100,28 +87,6 @@ def form_batch_groups(requests: Sequence[Request], *, target_batch: int = 8,
     return [list(b.queries) for b in batches]
 
 
-def prefill_groups(lens: Sequence[int], cost: float
-                   ) -> List[Tuple[int, int]]:
-    """Split prompt lengths sorted in ascending order into contiguous
-    groups ``[(r0, r1), ...]`` that minimise the tokens a padded prefill
-    computes, sum over groups of rows x the group's longest prompt, plus
-    ``cost`` a group: an exact dynamic program over the split points,
-    O(len(lens) ** 2). Equal lengths give one group."""
-    n = len(lens)
-    best = [0.0] + [float("inf")] * n     # best[j]: rows 0 .. j - 1 split
-    cut = [0] * (n + 1)
-    for j in range(1, n + 1):
-        for i in range(j):
-            c = best[i] + (j - i) * lens[j - 1] + cost
-            if c < best[j]:
-                best[j], cut[j] = c, i
-    groups, j = [], n
-    while j > 0:
-        groups.append((cut[j], j))
-        j = cut[j]
-    return groups[::-1]
-
-
 class LMServer:
     """Batched prefill + decode-loop serving for any decoder architecture of
     the registry.
@@ -137,7 +102,7 @@ class LMServer:
 
     def __init__(self, cfg: ModelConfig, params=None, *, device="cuda",
                  max_seq: int = 256, seed: int = 0, rule_filter=None,
-                 pad_batches: bool = True, tracer=None):
+                 tracer=None):
         if cfg.encoder_only:
             raise ValueError(
                 f"{cfg.arch} is encoder-only: it has no decode step to serve")
@@ -150,21 +115,14 @@ class LMServer:
         self.params = params
         self.max_seq = max_seq
         self.rule_filter = rule_filter
-        # pad each batch to the next power of two, as the reference does to
-        # bound its compiled variants; rows are independent (masked
-        # attention), so padding never changes per-request results. A model
-        # with the ragged prefill has no reference server to mirror, and
-        # eager PyTorch compiles nothing per batch size: its rows are never
-        # padded
-        self.pad_batches = pad_batches
         self._dev_params: Dict[torch.device, object] = {}
         # replica workers call execute_prepared from their own threads: one
         # copy of the parameters per device, never two at once
         self._params_lock = threading.Lock()
         self.tracer = tracer
         # prefill tokens computed: prompt tokens, and the padding beside
-        # them (rows padded to the longest prompt of their pass, and any
-        # padding rows); prefill passes: ragged passes, or decode steps
+        # them (rows padded to the longest prompt of their pass); prefill
+        # passes: the model's (``Model.prefill_prompts``)
         self._count_lock = threading.Lock()
         self.n_prefill_real = 0
         self.n_prefill_padded = 0
@@ -287,61 +245,10 @@ class LMServer:
             raise ValueError(
                 f"max_seq={total} too small for the prompt alone "
                 f"(longest prompt: {max_p})")
-        lens = list(plens)
-        ragged = self.model.prefill_ragged is not None
-        order = None
-        if ragged and len(set(plens)) > 1:
-            # rows by prompt length, so that each pass is a range of cache
-            # rows; rows are independent, and the caller gets its order back
-            order = sorted(range(B), key=plens.__getitem__)
-            rs = [rs[i] for i in order]
-            toks = toks[order]
-            plens = [plens[i] for i in order]
-
-        Bp = B
-        if self.pad_batches and B > 1 and not ragged:
-            Bp = 1 << (B - 1).bit_length()      # next power of two
-        if Bp != B:
-            toks = np.concatenate(
-                [toks, np.zeros((Bp - B, toks.shape[1]), np.int32)])
-
         params = self._params_on(dev)
-        cache = self.model.init_cache(Bp, total, device=dev)
-        generated = [[] for _ in range(B)]
-        if ragged:
-            # each prompt at the right end of its row (left padding,
-            # masked), every row ending at index max_p - 1; one pass a
-            # group, over its rows padded to its own longest prompt, the
-            # longest group first so that the host can queue the others
-            # while the card runs it
-            left = np.zeros((B, max_p), np.int32)
-            start = np.zeros(B, np.int64)
-            for i, n in enumerate(plens):
-                left[i, max_p - n:] = toks[i, :n]
-                start[i] = max_p - n
-            left_d = torch.as_tensor(left, dtype=torch.long).to(dev)
-            start_d = torch.as_tensor(start).to(dev)
-            groups = prefill_groups(plens, PASS_COST_TOKENS)
-            parts = []
-            for r0, r1 in reversed(groups):
-                off = max_p - plens[r1 - 1]
-                lg, _ = self.model.prefill_ragged(
-                    params, cache_rows(cache, r0, r1), left_d[r0:r1, off:],
-                    start_d[r0:r1] - off, offset=off)
-                parts.append(lg)
-            last_logits = torch.cat(parts[::-1])
-            passes = len(groups)
-            computed = sum((r1 - r0) * plens[r1 - 1] for r0, r1 in groups)
-        else:
-            toks_d = torch.as_tensor(toks, dtype=torch.long).to(dev)
-            # prefill through the decode step, token by token up to the
-            # longest prompt for every row (a shorter prompt's first
-            # generated token follows its zero padding, as in the reference)
-            last_logits = None
-            for pos in range(max_p):
-                last_logits, cache = self.model.decode_step(
-                    params, cache, toks_d[:, pos:pos + 1], pos)
-            passes, computed = max_p, Bp * max_p
+        cache = self.model.init_cache(B, total, device=dev)
+        last_logits, passes, computed = self.model.prefill_prompts(
+            params, cache, toks, plens)
         synchronize(dev)
         t1 = time.perf_counter()
         real = sum(plens)
@@ -359,7 +266,8 @@ class LMServer:
             t_prev = time.perf_counter()
             tr.span("lm.prefill", t0 if t_open is None else t_open, t_prev,
                     batch=batch, rows=B, real_tokens=real,
-                    padded_tokens=computed - real, lens=lens, passes=passes)
+                    padded_tokens=computed - real, lens=plens, passes=passes)
+        generated = [[] for _ in range(B)]
         for s in range(max_new):
             for i in range(B):
                 if s < rs[i].max_new_tokens:
@@ -386,14 +294,11 @@ class LMServer:
                     self.captured.setdefault(rs[i].rid, {})["logits"] = \
                         got[k]
 
-        out = [Completion(rid=r.rid, tokens=np.asarray(g, np.int32),
-                          prefill_ms=(t1 - t0) * 1e3,
-                          decode_ms=(t2 - t1) * 1e3, batch_size=B,
-                          truncated=len(g) < r.max_new_tokens)
-               for r, g in zip(rs, generated)]
-        if order is not None:
-            out = [out[k] for k in np.argsort(order)]
-        return out
+        return [Completion(rid=r.rid, tokens=np.asarray(g, np.int32),
+                           prefill_ms=(t1 - t0) * 1e3,
+                           decode_ms=(t2 - t1) * 1e3, batch_size=B,
+                           truncated=len(g) < r.max_new_tokens)
+                for r, g in zip(rs, generated)]
 
     # -- continuous batching front end ----------------------------------------
     def form_batches(self, requests: Sequence[Request], *,

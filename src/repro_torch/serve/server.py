@@ -57,6 +57,8 @@ class ServeConfig:
                         draws its parameters) when ``devices`` is not
                         given; ``"cuda"`` unless the caller asks for
                         ``"cpu"``.
+      ``max_seq``, ``seed``, ``rule_filter`` — the ``LMServer``'s; it
+                        serves each batch as formed, no row padded.
       ``server_factory`` — optional ``idx -> engine`` override; when set,
                         ``model``/``max_seq``/... are ignored and one
                         engine is built per replica (simulation, tests).
@@ -114,7 +116,6 @@ class ServeConfig:
     max_seq: int = 64
     seed: int = 0
     rule_filter: object = None
-    pad_batches: bool = True
     server_factory: Optional[Callable[[int], object]] = None
     # warm these batch-size buckets at build time (True = engine default;
     # engines without a warmup method, e.g. SimServer, ignore it)
@@ -228,12 +229,12 @@ class Server:
           each with its own depth-``pipeline_depth`` host/device pipeline.
 
         **Bit-identity guarantee:** every replica serves the same model
-        (same params), rows of a batch are independent (masked attention,
-        power-of-two padding), and batch composition does not depend on
-        wall-clock timing — so for any replica count and either routing
-        policy (use ``sticky`` when the *placement* must also replay
-        deterministically), ``mode="pipelined"`` returns completions
-        bit-identical to ``mode="sync"``. Only throughput differs.
+        (same params), rows of a batch are independent (masked attention),
+        and batch composition does not depend on wall-clock timing — so
+        for any replica count and either routing policy (use ``sticky``
+        when the *placement* must also replay deterministically),
+        ``mode="pipelined"`` returns completions bit-identical to
+        ``mode="sync"``. Only throughput differs.
 
         With tracing configured (``ServeConfig.trace``), encode /
         dispatch / device-execute spans and completion/drop marks land in
@@ -483,8 +484,7 @@ def build(cfg: ServeConfig) -> Server:
             model = model.reduced()
         device = cfg.devices[0] if cfg.devices else cfg.device
         server = LMServer(model, device=device, max_seq=cfg.max_seq,
-                          seed=cfg.seed, rule_filter=cfg.rule_filter,
-                          pad_batches=cfg.pad_batches)
+                          seed=cfg.seed, rule_filter=cfg.rule_filter)
         if cfg.mesh is not None:
             group = EngineGroup.from_mesh(server, cfg.mesh,
                                           axis=cfg.mesh_axis,

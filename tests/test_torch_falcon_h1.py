@@ -8,12 +8,13 @@ of the port's parameters is tested too. Float32 rounding is all that may
 differ: logits within 1e-4 of the largest.
 
 Also: the chunked SSD against the plain recurrence, the ragged prefill
-(each row equal to itself alone, and several passes at their offsets equal
-to one), ``LMServer`` behind a 2,000-rule filter, its length-sorted prefill
-groups (the split against a brute-force search, the result against one
-pass), its spans and counters, the published parameter counts, and the
-reference against transformers' ``FalconH1ForCausalLM`` where transformers
-is installed.
+(each row equal to itself alone, and several passes at their offsets and
+cache rows equal to one), the model's length-sorted prefill groups
+(``decode.prefill_prompts``: the split against a brute-force search, the
+result against one pass, in the caller's row order), ``LMServer`` behind a
+2,000-rule filter, its spans and counters, the published parameter counts,
+and the reference against transformers' ``FalconH1ForCausalLM`` where
+transformers is installed.
 """
 import dataclasses
 import itertools
@@ -33,10 +34,8 @@ from repro_torch.configs.base import (  # noqa: E402
     ASSIGNED_ARCHS, PORT_ONLY_ARCHS, get_config)
 from repro_torch.configs.falcon_h1_34b import (CONFIG, PUBLISHED,  # noqa: E402
                                                from_hf)
-from repro_torch.models import mamba2  # noqa: E402
-from repro_torch.models.decode import cache_rows  # noqa: E402
+from repro_torch.models import decode, mamba2  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from repro_torch.serve import engine as serve_engine  # noqa: E402
 
 SMALL = dict(PUBLISHED, hidden_size=256, num_attention_heads=4,
              num_key_value_heads=2, head_dim=64, intermediate_size=512,
@@ -120,7 +119,8 @@ def _generate(model, params, rows, n_new, max_seq=64):
         left[i, P - len(r):] = torch.as_tensor(r)
     with torch.no_grad():
         cache = model.init_cache(len(rows), max_seq, device="cpu")
-        lg, cache = model.prefill_ragged(params, cache, left, start)
+        lg, cache = decode.prefill_ragged(params, cache, left, start,
+                                          model.cfg)
         out = [lg[:, 0]]
         cur = lg[:, 0].argmax(-1)
         toks = [cur]
@@ -165,21 +165,24 @@ def _left(rows):
 def test_prefill_ragged_groups_at_offsets_equal_one_pass(small):
     cfg, model, params = small
     rng = np.random.default_rng(6)
-    lens = (2, 5, 9, 9, 17, 26, 33)
+    lens = (9, 2, 33, 5, 17, 9, 26)
     rows = [list(rng.integers(0, 512, n)) for n in lens]
     left, start = _left(rows)
     P = left.shape[1]
+    order = torch.tensor(sorted(range(len(lens)), key=lens.__getitem__))
+    s = sorted(lens)
     with torch.no_grad():
         one = model.init_cache(len(rows), 48, device="cpu")
-        want, one = model.prefill_ragged(params, one, left, start)
+        want, one = decode.prefill_ragged(params, one, left, start, cfg)
         split = model.init_cache(len(rows), 48, device="cpu")
         got = torch.empty_like(want)
         for r0, r1 in [(4, 7), (0, 2), (2, 4)]:
-            off = P - lens[r1 - 1]
-            lg, _ = model.prefill_ragged(
-                params, cache_rows(split, r0, r1), left[r0:r1, off:],
-                start[r0:r1] - off, offset=off)
-            got[r0:r1] = lg
+            off = P - s[r1 - 1]
+            idx = order[r0:r1]
+            lg, _ = decode.prefill_ragged(
+                params, split, left[idx, off:], start[idx] - off, cfg,
+                offset=off, rows=idx)
+            got[idx] = lg
     assert _rel(got, want) < 1e-5
     assert torch.equal(split["start"], one["start"])
     assert torch.equal(split["start"], start)
@@ -192,6 +195,36 @@ def test_prefill_ragged_groups_at_offsets_equal_one_pass(small):
                 assert not a[k][:, i, P:].any()
         for k in ("mamba_conv", "mamba_h"):
             assert _rel(a[k], b[k]) < 1e-5
+
+
+def test_prefill_prompts_keeps_the_callers_row_order(small, monkeypatch):
+    cfg, model, params = small
+    monkeypatch.setattr(decode, "PASS_COST_TOKENS", 0.0)
+    rng = np.random.default_rng(8)
+    lens = [14, 3, 27, 8, 3, 19]
+    rows = [list(rng.integers(1, 512, n)) for n in lens]
+    left, start = _left(rows)
+    P = left.shape[1]
+    toks = np.zeros((len(rows), P), np.int32)
+    for i, r in enumerate(rows):
+        toks[i, :len(r)] = r
+    with torch.no_grad():
+        one = model.init_cache(len(rows), 40, device="cpu")
+        want, one = decode.prefill_ragged(params, one, left, start, cfg)
+        cache = model.init_cache(len(rows), 40, device="cpu")
+        got, passes, computed = model.prefill_prompts(params, cache, toks,
+                                                      lens)
+    assert passes == len(set(lens)) and computed == sum(lens)
+    assert got.shape == want.shape
+    for i, n in enumerate(lens):
+        assert _rel(got[i], want[i]) < 1e-5
+        assert int(cache["start"][i]) == P - n == int(one["start"][i])
+    for a, b in zip(cache["runs"], one["runs"]):
+        for i, n in enumerate(lens):
+            for k in ("k", "v"):
+                assert _rel(a[k][:, i, P - n:P], b[k][:, i, P - n:P]) < 1e-5
+            for k in ("mamba_conv", "mamba_h"):
+                assert _rel(a[k][:, i], b[k][:, i]) < 1e-5
 
 
 def _brute_force_cost(lens, cost):
@@ -210,11 +243,11 @@ def _brute_force_cost(lens, cost):
 @pytest.mark.parametrize("n", range(1, 9))
 def test_prefill_groups_is_the_best_contiguous_split(n):
     rng = np.random.default_rng(n)
-    for cost in (0.0, 7.0, 60.0, serve_engine.PASS_COST_TOKENS):
+    for cost in (0.0, 7.0, 60.0, decode.PASS_COST_TOKENS):
         for _ in range(6):
             lens = sorted(int(x) for x in np.exp(
                 rng.uniform(np.log(32), np.log(384), n)))
-            groups = serve_engine.prefill_groups(lens, cost)
+            groups = decode.prefill_groups(lens, cost)
             assert groups[0][0] == 0 and groups[-1][1] == n
             assert all(a[1] == b[0] and a[0] < a[1]
                        for a, b in zip(groups, groups[1:] + [(n, n + 1)]))
@@ -224,17 +257,17 @@ def test_prefill_groups_is_the_best_contiguous_split(n):
 
 @pytest.mark.parametrize("cost", [0.0, 295.0])
 def test_prefill_groups_equal_lengths_one_group(cost):
-    assert serve_engine.prefill_groups([7] * 5, cost) == [(0, 5)]
-    assert serve_engine.prefill_groups([3], cost) == [(0, 1)]
+    assert decode.prefill_groups([7] * 5, cost) == [(0, 5)]
+    assert decode.prefill_groups([3], cost) == [(0, 1)]
     # a pass costs at least its weight read
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
-    assert serve_engine.PASS_COST_TOKENS >= PEAK_FLOPS / HBM_BW
+    assert decode.PASS_COST_TOKENS >= PEAK_FLOPS / HBM_BW
 
 
 def _serve_batch(cfg, params, monkeypatch, cost, lens):
     from repro_torch.serve import LMServer, Request
     from repro_torch.serve.trace import Tracer
-    monkeypatch.setattr(serve_engine, "PASS_COST_TOKENS", cost)
+    monkeypatch.setattr(decode, "PASS_COST_TOKENS", cost)
     rng = np.random.default_rng(7)
     reqs = [Request(rid=10 + i, tokens=rng.integers(1, 512, n).astype(
         np.int32), max_new_tokens=3 + i % 3, capture=True)
@@ -268,7 +301,7 @@ def test_prefill_counts_and_span_follow_the_split(small, monkeypatch):
     lens = [12, 3, 12, 30, 5, 29]
     srv, outs, spans = _serve_batch(cfg, params, monkeypatch, 10.0, lens)
     s = sorted(lens)
-    groups = serve_engine.prefill_groups(s, 10.0)
+    groups = decode.prefill_groups(s, 10.0)
     assert len(groups) >= 2
     computed = sum((r1 - r0) * s[r1 - 1] for r0, r1 in groups)
     assert srv.prefill_counts() == (sum(lens), computed - sum(lens))
