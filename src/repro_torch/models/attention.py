@@ -215,12 +215,13 @@ def qblock_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_scores_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, *, pos: int,
+                            v_cache: torch.Tensor, *, pos,
                             window: int = 0, kv_start=None) -> torch.Tensor:
     """Single-token attention against a cache.
 
     q: (B, 1, K, G, d); k_cache / v_cache: (B, S, K, d); pos: the number of
-    valid cache entries (the new token's absolute position + 1); kv_start:
+    valid cache entries (the new token's absolute position + 1), an int
+    or a 0-d integer tensor on q's device; kv_start:
     None, or (B,) each row's first valid entry. q is
     rounded to the cache's dtype and the probabilities to v's before each
     product, as in the reference; the products run in float32.
@@ -306,13 +307,18 @@ def attn_forward(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     return out @ params["wo"].to(x.dtype), cache
 
 
-def _write_pos(cache: torch.Tensor, pos: int, val: torch.Tensor) -> None:
+def _write_pos(cache: torch.Tensor, pos, val: torch.Tensor) -> None:
     """cache[:, pos] = val in place; cache (B, S, K, hd), val (B, K, hd).
 
+    ``pos`` is an int, or a 0-d int64 tensor on a plain cache's device
+    (an index write, so that a captured CUDA graph reads it at replay).
     On a DTensor cache the write runs on the local shards, on the rank
     that holds position ``pos`` of a sequence-sharded cache."""
     if not isinstance(cache, DTensor):
-        cache[:, pos] = val.to(cache.dtype)
+        if isinstance(pos, torch.Tensor):
+            cache.index_copy_(1, pos.view(1), val[:, None].to(cache.dtype))
+        else:
+            cache[:, pos] = val.to(cache.dtype)
         return
     mesh, pl = cache.device_mesh, cache.placements
     # the value's layout: the cache's, without its sequence dim
@@ -335,11 +341,12 @@ def _write_pos(cache: torch.Tensor, pos: int, val: torch.Tensor) -> None:
 
 
 def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, *, pos: int, n_heads: int,
+                cache_v: torch.Tensor, *, pos, n_heads: int,
                 n_kv_heads: int, head_dim: int, rope_theta, window: int = 0,
                 shard=None, key_scale=None, kv_start=None, rope_pos=None):
     """One-token decode. x: (B, 1, D); cache: (B, S, K, hd), written in
-    place at index ``pos``. Returns (out, cache_k, cache_v).
+    place at index ``pos`` (an int, or a 0-d int64 tensor on x's device).
+    Returns (out, cache_k, cache_v).
 
     ``key_scale``: as in :func:`attn_forward`. ``kv_start`` (B,): each
     row's first valid cache entry; ``rope_pos`` (B, 1): each row's own
@@ -352,8 +359,12 @@ def attn_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
     if key_scale is not None:
         k = k * key_scale
     if rope_theta is not None:
-        p = torch.full((1,), pos, device=x.device) if rope_pos is None \
-            else rope_pos
+        if rope_pos is not None:
+            p = rope_pos
+        elif isinstance(pos, torch.Tensor):
+            p = pos.view(1)
+        else:
+            p = torch.full((1,), pos, device=x.device)
         q = apply_rope(q, p, rope_theta)
         k = apply_rope(k, p, rope_theta)
     _write_pos(cache_k, pos, k[:, 0])

@@ -17,9 +17,19 @@ longest, written through an index of cache rows at its own offset, so that
 each row is where it would be alone (its cache carries each row's
 "start"). Every other arch runs ``decode_step`` once per prompt position
 for every row, as the reference does.
+
+``decoder`` is what a server keeps per device to run batches: it yields
+each batch's cache for the prefill, then runs the decode steps. A Mamba-2
+hybrid on a CUDA device gets a ``GraphDecoder`` (one cache kept across
+batches, the step replayed as a CUDA graph per row bucket, the position a
+0-d device tensor); every other arch, and every CPU run, an
+``EagerDecoder`` (a fresh ``init_cache`` a batch, ``decode_step`` with an
+``int`` pos). Both run the same ``decode_step`` arithmetic.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -126,9 +136,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
     return z
 
 
-def decode_step(params, cache, token: torch.Tensor, pos: int,
+def decode_step(params, cache, token: torch.Tensor, pos,
                 cfg: ModelConfig, ctx=None) -> Tuple[torch.Tensor, Any]:
-    """token: (B, 1) integer ids; pos: the write index into the cache.
+    """token: (B, 1) integer ids; pos: the write index into the cache, an
+    int or a 0-d int64 tensor on the cache's device (the same arithmetic:
+    a tensor lets one captured CUDA graph serve every position).
 
     Returns (logits (B, 1, V), cache), the cache updated in place.
     """
@@ -319,3 +331,175 @@ def prefill_prompts(params, cache, toks: np.ndarray, lens: Sequence[int],
         last.index_copy_(0, rows, lg)
     computed = sum((r1 - r0) * s[r1 - 1] for r0, r1 in groups)
     return last, len(groups), computed
+
+
+# The captured decoder's row buckets: a batch of B rows decodes on the
+# first B rounded up to a multiple of this, so that one CUDA graph serves
+# every batch of a bucket (at most ROW_BUCKET - 1 rows of padding a step)
+ROW_BUCKET = 8
+
+
+def _bucket(rows: int) -> int:
+    return -(-rows // ROW_BUCKET) * ROW_BUCKET
+
+
+def decoder(params, max_seq: int, device, cfg: ModelConfig, step):
+    """The decoder of ``device``, kept by its caller across batches: a
+    Mamba-2 hybrid on a CUDA device gets a ``GraphDecoder``, every other
+    arch and every CPU run an ``EagerDecoder`` over ``step`` (the model's
+    bound ``decode_step``)."""
+    dev = resolve_device(device)
+    if cfg.mamba2 is not None and dev.type == "cuda":
+        return GraphDecoder(params, cfg, max_seq, dev)
+    return EagerDecoder(params, cfg, max_seq, dev, step)
+
+
+class EagerDecoder:
+    """A fresh ``init_cache`` of the batch's rows a batch, and an eager
+    ``decode_step`` with an ``int`` pos a step. Holds no state between
+    batches, so several threads may run batches at once."""
+
+    n_captures = 0
+
+    def __init__(self, params, cfg: ModelConfig, max_seq: int,
+                 device: torch.device, step):
+        self.params, self.cfg, self.max_seq = params, cfg, max_seq
+        self.device, self._step = device, step
+
+    def warm(self, rows: int) -> None:
+        """Nothing to ready."""
+
+    @contextlib.contextmanager
+    def batch(self, rows: int):
+        """The batch's decode cache, ``rows`` rows, for the prefill and
+        ``step``."""
+        yield init_cache(self.cfg, rows, self.max_seq, device=self.device)
+
+    def step(self, cache, tokens: torch.Tensor, pos: int):
+        """One step of the batch: tokens (B,) on the device. Returns
+        (logits (B, 1, V), the greedy next tokens (B,), 0: no graph)."""
+        logits, _ = self._step(self.params, cache, tokens[:, None], pos)
+        return logits, logits[:, -1].argmax(dim=-1), 0
+
+
+class GraphDecoder:
+    """A Mamba-2 hybrid's decode on one device: one cache kept across
+    batches, and the step replayed as a CUDA graph per row bucket.
+
+    The cache holds R rows (the largest batch seen, rounded up to
+    ``ROW_BUCKET``). A batch of B rows works on the first b = B rounded
+    up: ``batch`` zeroes them (as ``init_cache`` would), the prefill
+    writes the B real rows and the decode steps all b; rows B .. b - 1
+    are padding, computed and thrown away. Each bucket's graph reads the
+    static token and position buffers and the cache rows, runs
+    ``decode_step`` with the position as a 0-d tensor and ends in the
+    greedy argmax written back into the token buffer; its logits stay in
+    the graph's output. Graphs of all buckets share one memory pool (they
+    never run at once: ``lock`` covers a batch's prefill and decode).
+
+    ``warm(rows)`` captures every bucket up to ``rows``; a batch larger
+    than the kept cache grows it (the graphs go) and captures its own
+    bucket when it opens, before its rows are written. A capture error
+    raises. Off the card nothing is captured: the same steps run eagerly
+    on the same buffers (the CPU tests)."""
+
+    def __init__(self, params, cfg: ModelConfig, max_seq: int,
+                 device: torch.device):
+        self.params, self.cfg, self.max_seq = params, cfg, max_seq
+        self.device = device
+        self.lock = threading.Lock()
+        self.rows = 0
+        self.cache = self._tok = self._pos = None
+        self.graphs: Dict[int, Tuple[Any, torch.Tensor]] = {}
+        self._pool = None
+        self.n_captures = 0
+
+    def _reserve(self, rows: int) -> None:
+        R = _bucket(rows)
+        if R <= self.rows:
+            return
+        # the graphs read the old buffers: they go, and the old cache
+        # before the new one is made
+        self.graphs.clear()
+        self._pool = self.cache = None
+        self.cache = init_cache(self.cfg, R, self.max_seq,
+                                device=self.device)
+        self._tok = torch.zeros((R, 1), dtype=torch.long, device=self.device)
+        self._pos = torch.zeros((), dtype=torch.long, device=self.device)
+        self.rows = R
+
+    def _view(self, b: int):
+        """The cache's first b rows (views)."""
+        c = self.cache
+        return {"runs": [{k: t[:, :b] for k, t in run.items()}
+                         for run in c["runs"]], "start": c["start"][:b]}
+
+    def _step(self, b: int) -> torch.Tensor:
+        logits, _ = decode_step(self.params, self._view(b), self._tok[:b],
+                                self._pos, self.cfg)
+        self._tok[:b, 0].copy_(logits[:, -1].argmax(dim=-1))
+        return logits
+
+    def _capture(self, b: int) -> None:
+        with torch.cuda.device(self.device):
+            # one eager step on a side stream first (library handles and
+            # workspaces made outside the capture), as torch.cuda.graphs
+            # asks; it writes only rows no batch holds yet
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._step(b)
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                logits = self._step(b)
+        if self._pool is None:
+            self._pool = g.pool()
+        self.graphs[b] = (g, logits)
+        self.n_captures += 1
+
+    def _ready(self, b: int) -> None:
+        if self.device.type == "cuda" and b not in self.graphs:
+            self._capture(b)
+
+    def warm(self, rows: int) -> None:
+        """Keep a cache of ``rows`` rows (rounded up) and capture every
+        bucket up to it."""
+        with self.lock:
+            self._reserve(rows)
+            for b in range(ROW_BUCKET, _bucket(rows) + 1, ROW_BUCKET):
+                self._ready(b)
+
+    @contextlib.contextmanager
+    def batch(self, rows: int):
+        """Hold the device's decoder for one batch of ``rows`` rows and
+        yield its cache: the kept cache's first b rows, zeroed."""
+        b = _bucket(rows)
+        with self.lock:
+            self._reserve(b)
+            self._ready(b)
+            view = self._view(b)
+            for run in view["runs"]:
+                for t in run.values():
+                    t.zero_()
+            view["start"].zero_()
+            yield view
+
+    def step(self, cache, tokens: torch.Tensor, pos: int):
+        """One step of the batch ``batch`` opened (``cache`` is what it
+        yielded): tokens (B,) on the device (copying the last step's
+        output onto itself is a no-op). Returns (logits (B, 1, V) and the greedy next
+        tokens (B,), views of the static buffers that the next step
+        overwrites, and the bucket replayed, 0 where no graph ran)."""
+        B = tokens.shape[0]
+        b = _bucket(B)
+        self._tok[:B, 0].copy_(tokens)
+        self._pos.fill_(pos)
+        g = self.graphs.get(b)
+        if g is None:
+            logits = self._step(b)
+        else:
+            g[0].replay()
+            logits = g[1]
+        return logits[:B], self._tok[:B, 0], b if g is not None else 0

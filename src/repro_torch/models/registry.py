@@ -36,6 +36,10 @@ class Model(NamedTuple):
     # computed): a batch of prompts into a decode cache
     prefill_prompts: Callable[..., Any]
     decode_step: Callable[..., Any]
+    # (params, max_seq, device) -> the device's decoder, kept across
+    # batches (``decode.decoder``: captured for a Mamba-2 hybrid on the
+    # card, eager otherwise)
+    decoder: Callable[..., Any]
     cache_struct: Callable[[int, int], Any]
     init_cache: Callable[..., Any]
 
@@ -91,6 +95,7 @@ def build_model(cfg_or_arch, ctx=None) -> Model:
            else get_config(cfg_or_arch))
     if cfg.mamba2 is not None and ctx is not None:
         raise ValueError(f"{cfg.arch}: no sharded path")
+    step = _sharded(functools.partial(decode_mod.decode_step, cfg=cfg), ctx)
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg),
@@ -100,8 +105,8 @@ def build_model(cfg_or_arch, ctx=None) -> Model:
                          ctx),
         prefill_prompts=_sharded(functools.partial(
             decode_mod.prefill_prompts, cfg=cfg), ctx),
-        decode_step=_sharded(functools.partial(decode_mod.decode_step,
-                                               cfg=cfg), ctx),
+        decode_step=step,
+        decoder=functools.partial(decode_mod.decoder, cfg=cfg, step=step),
         cache_struct=functools.partial(decode_mod.cache_struct, cfg),
         init_cache=functools.partial(decode_mod.init_cache, cfg),
     )

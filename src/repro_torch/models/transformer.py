@@ -170,11 +170,12 @@ def attn_runs(cfg: ModelConfig):
 
 def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
                 theta, ctx=None, positions=None, mode: str = "train",
-                cache: Optional[dict] = None, pos: Optional[int] = None,
+                cache: Optional[dict] = None, pos=None,
                 start: Optional[torch.Tensor] = None):
     """One block. mode: train | prefill (full sequence) or decode (one
     token at ``pos``, the cache entry updated in place: keys and values
-    written at ``pos``, the Mamba state overwritten).
+    written at ``pos``, the Mamba state overwritten). ``pos`` is an int,
+    or a 0-d int64 tensor on the cache's device.
 
     ``start`` (B,), a Mamba-2 hybrid's ragged batch only: the index of
     each row's first real token, its left padding masked (see
@@ -246,8 +247,7 @@ def apply_block(p, x: torch.Tensor, cfg: ModelConfig, *, window: int,
 
 def apply_mamba2_block(p, x: torch.Tensor, cfg: ModelConfig, *, theta,
                        positions=None, mode: str = "train",
-                       cache: Optional[dict] = None,
-                       pos: Optional[int] = None,
+                       cache: Optional[dict] = None, pos=None,
                        start: Optional[torch.Tensor] = None):
     """A Falcon-H1 block: one RMS norm, then GQA attention (keys times
     ``mup.key``) and the Mamba-2 mixer on the same normed input, their
@@ -259,7 +259,7 @@ def apply_mamba2_block(p, x: torch.Tensor, cfg: ModelConfig, *, theta,
     from there, attention masks the keys before it, and the mixer zeroes
     the pad positions' inputs and step sizes, so that every row computes
     what it would alone. In decode mode ``pos`` is the cache index
-    written, the same for every row. Cache entry: "k", "v" (B, S, K, hd),
+    written, the same for every row (an int, or a 0-d int64 tensor). Cache entry: "k", "v" (B, S, K, hd),
     "mamba_conv" (B, W - 1, conv_dim), "mamba_h" (B, H, P, N)."""
     mup, eps, m = cfg.mup, cfg.norm_eps, cfg.mamba2
     h = norm_apply(p["norm1"], x, "rms", eps)

@@ -10,16 +10,19 @@ A batch is split into a host-side **prepare** stage (token-matrix assembly
 and MCT query encoding, numpy only) and a device-side **execute** stage
 (rule matching on the engine's device, then the decode loop).
 
-The prefill belongs to the model: the execute stage makes a decode cache
-for the batch, has ``Model.prefill_prompts`` fill it with the prompts (the
-model chooses how, and counts its passes and the tokens they compute),
-then decodes from it. With a ``Tracer`` (``LMServer(tracer=)``, or the
-server's through ``build``) the execute stage emits ``lm.filter``,
-``lm.prefill`` and one ``lm.decode`` a step, on shared clock readings so
-that they tile it; ``prefill_counts`` counts the prefill's real and padded
-tokens, ``n_prefill_passes`` its passes. A request marked ``capture``
-leaves its MCT answers and the float32 logits of every step in
-``LMServer.captured``.
+The prefill and the decode belong to the model: the execute stage opens a
+batch on the device's decoder (``Model.decoder``, kept per device: it
+yields the batch's decode cache and runs the steps, captured as CUDA
+graphs where the model chooses to), has ``Model.prefill_prompts`` fill the
+cache with the prompts (the model chooses how, and counts its passes and
+the tokens they compute), then decodes from it. With a ``Tracer``
+(``LMServer(tracer=)``, or the server's through ``build``) the execute
+stage emits ``lm.filter``, ``lm.prefill`` and one ``lm.decode`` a step, on
+shared clock readings so that they tile it; ``prefill_counts`` counts the
+prefill's real and padded tokens, ``n_prefill_passes`` its passes,
+``decode_counts`` the graph replays, eager steps and captures. A request
+marked ``capture`` leaves its MCT answers and the float32 logits of every
+step in ``LMServer.captured``.
 """
 from __future__ import annotations
 
@@ -116,8 +119,10 @@ class LMServer:
         self.max_seq = max_seq
         self.rule_filter = rule_filter
         self._dev_params: Dict[torch.device, object] = {}
+        # the model's decoder of each device, kept across batches
+        self._decoders: Dict[torch.device, object] = {}
         # replica workers call execute_prepared from their own threads: one
-        # copy of the parameters per device, never two at once
+        # copy of the parameters and one decoder per device, never two
         self._params_lock = threading.Lock()
         self.tracer = tracer
         # prefill tokens computed: prompt tokens, and the padding beside
@@ -127,6 +132,9 @@ class LMServer:
         self.n_prefill_real = 0
         self.n_prefill_padded = 0
         self.n_prefill_passes = 0
+        # decode steps replayed as a CUDA graph, and run eagerly
+        self.n_decode_graph = 0
+        self.n_decode_eager = 0
         self._n_batches = 0
         # rid -> {"mct": (decisions, weights, rule ids), "logits": (steps,
         # V) float32} of the requests marked ``capture``
@@ -136,6 +144,13 @@ class LMServer:
         """(real, padded) prefill tokens computed so far."""
         with self._count_lock:
             return self.n_prefill_real, self.n_prefill_padded
+
+    def decode_counts(self) -> tuple:
+        """(graph replays, eager steps, captures) of the decode so far."""
+        with self._params_lock:
+            captures = sum(d.n_captures for d in self._decoders.values())
+        with self._count_lock:
+            return self.n_decode_graph, self.n_decode_eager, captures
 
     # -- host-side prepare stage ----------------------------------------------
     def prepare_batch(self, requests: Sequence[Request]) -> PreparedBatch:
@@ -209,9 +224,14 @@ class LMServer:
             return []
         return self.execute_prepared(self.prepare_batch(requests))
 
+    @torch.inference_mode()
     def warmup(self, batch_sizes: Sequence[int] = (1, 8), *,
                prompt_len: int = 4, max_new_tokens: int = 2) -> None:
-        """Run each batch size once (allocator, library handles)."""
+        """Ready the server's device's decoder for the largest batch size
+        (``warm``: a captured decoder keeps its cache and captures every
+        row bucket up to it), then run each batch size once (allocator,
+        library handles)."""
+        self._decoder_on(self.device).warm(max(batch_sizes, default=0))
         for b in batch_sizes:
             reqs = [Request(rid=-1 - i, tokens=np.ones(prompt_len, np.int32),
                             max_new_tokens=max_new_tokens)
@@ -225,6 +245,15 @@ class LMServer:
             if device not in self._dev_params:
                 self._dev_params[device] = _tree_to(self.params, device)
             return self._dev_params[device]
+
+    def _decoder_on(self, device: torch.device):
+        """The model's decoder of ``device``, made once and kept."""
+        params = self._params_on(device)
+        with self._params_lock:
+            if device not in self._decoders:
+                self._decoders[device] = self.model.decoder(
+                    params, self.max_seq, device)
+            return self._decoders[device]
 
     @torch.inference_mode()
     def _run_decode(self, rs: List[Request], toks: np.ndarray,
@@ -246,47 +275,57 @@ class LMServer:
                 f"max_seq={total} too small for the prompt alone "
                 f"(longest prompt: {max_p})")
         params = self._params_on(dev)
-        cache = self.model.init_cache(B, total, device=dev)
-        last_logits, passes, computed = self.model.prefill_prompts(
-            params, cache, toks, plens)
-        synchronize(dev)
-        t1 = time.perf_counter()
-        real = sum(plens)
-        with self._count_lock:
-            self.n_prefill_real += real
-            self.n_prefill_padded += computed - real
-            self.n_prefill_passes += passes
+        dec = self._decoder_on(dev)
+        n_graph = n_eager = 0
+        with dec.batch(B) as cache:
+            last_logits, passes, computed = self.model.prefill_prompts(
+                params, cache, toks, plens)
+            synchronize(dev)
+            t1 = time.perf_counter()
+            real = sum(plens)
+            with self._count_lock:
+                self.n_prefill_real += real
+                self.n_prefill_padded += computed - real
+                self.n_prefill_passes += passes
 
-        cap = [i for i, r in enumerate(rs) if r.capture]
-        caps = [last_logits[cap, -1].float()] if cap else []
-        cur = last_logits[:, -1].argmax(dim=-1)
-        cur_h = cur.cpu().numpy()
-        tr = self.tracer
-        if tr is not None:
-            t_prev = time.perf_counter()
-            tr.span("lm.prefill", t0 if t_open is None else t_open, t_prev,
-                    batch=batch, rows=B, real_tokens=real,
-                    padded_tokens=computed - real, lens=plens, passes=passes)
-        generated = [[] for _ in range(B)]
-        for s in range(max_new):
-            for i in range(B):
-                if s < rs[i].max_new_tokens:
-                    generated[i].append(int(cur_h[i]))
-            pos = max_p + s
-            if pos >= total - 1 or s == max_new - 1:
-                break
-            logits, cache = self.model.decode_step(params, cache,
-                                                   cur[:, None], pos)
-            if cap:
-                caps.append(logits[cap, -1].float())
-            cur = logits[:, -1].argmax(dim=-1)
+            cap = [i for i, r in enumerate(rs) if r.capture]
+            caps = [last_logits[cap, -1].float()] if cap else []
+            cur = last_logits[:, -1].argmax(dim=-1)
             cur_h = cur.cpu().numpy()
+            tr = self.tracer
             if tr is not None:
-                t = time.perf_counter()
-                tr.span("lm.decode", t_prev, t, batch=batch, rows=B,
-                        pos=pos)
-                t_prev = t
+                t_prev = time.perf_counter()
+                tr.span("lm.prefill", t0 if t_open is None else t_open,
+                        t_prev, batch=batch, rows=B, real_tokens=real,
+                        padded_tokens=computed - real, lens=plens,
+                        passes=passes)
+            generated = [[] for _ in range(B)]
+            for s in range(max_new):
+                for i in range(B):
+                    if s < rs[i].max_new_tokens:
+                        generated[i].append(int(cur_h[i]))
+                pos = max_p + s
+                if pos >= total - 1 or s == max_new - 1:
+                    break
+                # logits and cur are the decoder's: the next step may
+                # overwrite them (the captures below index out copies)
+                logits, cur, graph = dec.step(cache, cur, pos)
+                if graph:
+                    n_graph += 1
+                else:
+                    n_eager += 1
+                if cap:
+                    caps.append(logits[cap, -1].float())
+                cur_h = cur.cpu().numpy()
+                if tr is not None:
+                    t = time.perf_counter()
+                    tr.span("lm.decode", t_prev, t, batch=batch, rows=B,
+                            pos=pos, graph=graph)
+                    t_prev = t
         t2 = time.perf_counter()
+        with self._count_lock:
+            self.n_decode_graph += n_graph
+            self.n_decode_eager += n_eager
         if cap:
             got = torch.stack(caps, dim=1).cpu().numpy()
             with self._count_lock:
