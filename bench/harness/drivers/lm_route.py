@@ -7,8 +7,21 @@ Configuration (``bench/configs/<config>.json``): a model's published
 module ``repro_torch.configs.<arch>``, whose ``from_hf`` reads those
 keys), ``dtype``, ``reference`` and ``work`` (module names under
 ``bench/reference/`` and ``bench/work/``: the plain model and its FLOP and
-byte counts) and ``mct_config`` (the filter's rule table, a configuration
-of its own; ``mct_overrides`` patches it, for the CPU tests).
+byte counts), ``mct_config`` (the filter's rule table, a configuration of
+its own; ``mct_overrides`` patches it, for the CPU tests),
+``lm_logits_err_limit`` with its reason ``lm_logits_err_why`` (the limit
+set from this configuration's own readings on the card, against its own
+controls; no default) and ``counters`` (the ``LMServer`` counters its
+per-layer metrics read, each read at the window's open and close into
+``run.data["counts"][name]``; one the program lacks is not read).
+
+The reference module gives what the driver takes from the model: the
+program's tree in its own layout (``from_port(params, keys)``: ``embed``,
+``layers`` and the weights ``logits`` reads; a tied model's head is its
+embedding), the pieces ``embed``, ``block`` and ``logits`` run a layer at
+a time, ``to_float32``, ``strict_float32``, and the controls:
+``CONTROLS`` (each control's weight groups) and ``matrices(params,
+groups)``.
 
 Traffic (``bench/traffic/<mix>.json``): ``searchers`` threads, each
 submitting one search at a time and waiting for every answer; a search is
@@ -34,12 +47,11 @@ routes' MCT answers judged by ``bench/reference/mct.py`` plus every
 answered route whose fate (scored or dropped) is not the one its connect
 times were drawn for; ``searches_missing``.
 
-``control`` (a traffic override, never in a traffic file) rounds weight
-matrices of the program through float8 e4m3 (with a per-tensor scale) for
-the window and restores them for the check: "fp8" every matrix (the
-embedding, the head, attention, the Mamba-2 projections, the MLP), the
-precision below the configuration's across the whole model; "mlp_fp8" the
-MLP's alone. ``lm_logits_err`` must refuse both.
+``control`` (a traffic override, never in a traffic file), one of the
+reference module's ``CONTROLS``, rounds the weight matrices of its groups
+in the program through float8 e4m3 (with a per-tensor scale) for the
+window and restores them for the check. ``lm_logits_err`` must refuse
+each.
 """
 from __future__ import annotations
 
@@ -54,21 +66,12 @@ import numpy as np
 
 from bench.harness import core, inputs
 from bench.harness.core import TracedRun
-from bench.harness.profile import hold_window
+from bench.harness.profile import PauseAtSpans, hold_window
 from bench.reference import mct as ref_mct
 
 DRAIN_S = 120.0
-# lm_logits_err's limit, from readings on an H100 at the published widths:
-# bf16 serving against the float32 reference reads 0.0213-0.0219 (14
-# seeds; a position's error is bf16 rounding spread over the vocabulary,
-# 0.0201-0.0206 on average), every weight matrix in float8 e4m3 (control
-# "fp8") 0.1243-0.1252, the MLP's alone ("mlp_fp8") 0.0511-0.0516 (three
-# seeds each). 0.03 is 1.37x the largest bf16 reading and refuses both
-# controls; float32 rounding alone reads about 1e-6 (the CPU tests).
-LOGITS_ERR_LIMIT = 0.03
-# the controls: the weight matrices a control rounds through float8
-CONTROLS = {"mlp_fp8": ("ffn",),
-            "fp8": ("embed", "unembed", "attn", "mamba2", "ffn")}
+# what every configuration of this driver states, with no default
+REQUIRED = ("lm_logits_err_limit", "lm_logits_err_why")
 
 
 class Driver:
@@ -78,6 +81,13 @@ class Driver:
         self.cfg, self.tr, self.seed, self.device = config, traffic, seed, \
             device
         self.trace = trace
+        for k in REQUIRED:
+            if k not in config:
+                raise KeyError(f"configuration {cell['config']!r} states no "
+                               f"{k!r}: lm_logits_err's limit comes from "
+                               "the configuration's own readings")
+        self.limit = float(config["lm_logits_err_limit"])
+        self.counters = tuple(config.get("counters", ()))
         # the program's config first: a program without the arch stops here
         mod = importlib.import_module(
             "repro_torch.configs."
@@ -110,10 +120,15 @@ class Driver:
             trace=TraceConfig(capacity=1 << 20) if self.trace else None))
         engine.tracer = self.srv.tracer
         self.lm = self.srv.engine
+        # the profiler stops while the thread that launches the scorer's
+        # work waits between two stages: stopped while that thread
+        # launched, it hung the run on the card
+        self._pause = PauseAtSpans(self.srv.tracer, self.GAP_PRIORITY) \
+            if self.trace else None
         self._saved = None
         if t.get("control"):
-            self._saved = _round_fp8(self.lm.params,
-                                     CONTROLS[t["control"]])
+            self._saved = _round_fp8(self.ref.matrices(
+                self.lm.params, self.ref.CONTROLS[t["control"]]))
         self._draw_searches()
         # the filter's kernel built and the LM's largest shapes run once
         # (allocator, library handles) before the load starts
@@ -232,10 +247,11 @@ class Driver:
     def window(self, seconds: float, profile_at) -> TracedRun:
         with self._lock:
             self._open = True
-        counts0 = self.lm.prefill_counts()
+        counts0 = self._counts()
         t0, t1, dev = hold_window(seconds, profile_at,
-                                  float(self.tr["profile_s"]), self.device)
-        counts1 = self.lm.prefill_counts()
+                                  float(self.tr["profile_s"]), self.device,
+                                  pause=self._pause)
+        counts1 = self._counts()
         self._stop.set()
         deadline = t1 + DRAIN_S
         for th in self._threads:
@@ -249,11 +265,16 @@ class Driver:
         data = {"searches": searches, "routes": self.routes,
                 "attempted": len(started),
                 "failed": sum(1 for s in started if "t_done" not in s),
-                "prefill_counts": (counts0, counts1)}
+                "counts": {k: (counts0[k], counts1[k]) for k in counts0}}
         if tracer is not None:
             data["spans"] = tracer.spans()
             data["spans_dropped"] = tracer.n_dropped
         return TracedRun(t0, t1, device=dev, data=data)
+
+    def _counts(self) -> dict:
+        """The configuration's counters as the program reads them now."""
+        return {k: getattr(self.lm, k)() for k in self.counters
+                if hasattr(self.lm, k)}
 
     # -- metrics --------------------------------------------------------------
     def end_to_end(self, run: TracedRun) -> dict:
@@ -300,8 +321,8 @@ class Driver:
                   if r.get("fate") == "scored"}
         err = self._logits_err(scored)
         del self.params
-        return {"lm_logits_err": (err, LOGITS_ERR_LIMIT,
-                                  bool(scored) and err <= LOGITS_ERR_LIMIT),
+        return {"lm_logits_err": (err, self.limit,
+                                  bool(scored) and err <= self.limit),
                 "mct_wrong": (wrong, 0, wrong <= 0 and bool(marked)),
                 "searches_missing": (missing, 0, missing <= 0)}
 
@@ -331,7 +352,7 @@ class Driver:
         reference|| over ||reference||, the reference a layer at a time in
         float32."""
         import torch
-        ref, keys, p = self.ref, self.cfg, self.params
+        ref, keys = self.ref, self.cfg
         ref.strict_float32()
         rows = []
         for rid, r in scored.items():
@@ -346,45 +367,30 @@ class Driver:
         if not rows:
             return math.inf
         with torch.no_grad():
-            xs = [ref.embed(p["embed"], s, keys) for _, s, _ in rows]
-            for blk in (b for run in p["blocks"] for b in run):
-                w = ref.to_float32(ref.from_port_block(blk))
-                xs = [ref.block(w, x, keys) for x in xs]
-                del w
-            norm_f = 1.0 + p["norm_f"]["w"].float()
-            unembed = p["unembed"].float()
+            w = ref.from_port(self.params, keys)
+            embed, layers = w.pop("embed"), w.pop("layers")
+            xs = [ref.embed(embed, s, keys) for _, s, _ in rows]
+            for layer in layers:
+                layer = ref.to_float32(layer)
+                xs = [ref.block(layer, x, keys) for x in xs]
+                del layer
+            w = ref.to_float32(w)     # the final norm and the head, once
             err = 0.0
             for (n, _, got), x in zip(rows, xs):
-                want = ref.head(norm_f, unembed, x[n - 1:], keys)
+                want = ref.logits(w, x[n - 1:], keys)
                 got = torch.as_tensor(got, device=want.device)
                 rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
                 err = max(err, float(rel.max()))
         return err
 
 
-def _matrices(params, parts):
-    """The weight matrices of ``parts`` ("embed", "unembed", and the block
-    groups "attn", "mamba2", "ffn"), in a fixed order."""
-    for k in ("embed", "unembed"):
-        if k in parts:
-            yield params[k]
-    for run in params["blocks"]:
-        for blk in run:
-            for g, keys in (("attn", ("wq", "wk", "wv", "wo")),
-                            ("mamba2", ("w_in", "w_out")),
-                            ("ffn", ("wg", "wi", "wo"))):
-                if g in parts:
-                    for k in keys:
-                        yield blk[g][k]
-
-
-def _round_fp8(params, parts) -> list:
-    """Round the weight matrices of ``parts`` through float8 e4m3 with a
-    per-tensor scale (amax to 448), in place, a slab of rows at a time;
-    returns each matrix with its original, on the host."""
+def _round_fp8(matrices) -> list:
+    """Round each of ``matrices`` through float8 e4m3 with a per-tensor
+    scale (amax to 448), in place, a slab of rows at a time; returns each
+    matrix with its original, on the host."""
     import torch
     saved = []
-    for w in _matrices(params, parts):
+    for w in matrices:
         saved.append((w, w.to("cpu", copy=True)))
         s = float(w.abs().max().float()) / 448.0
         for r in range(0, w.shape[0], 8192):

@@ -11,6 +11,15 @@ taken in an order drawn from ``--seed``; their MCT queries drawn from
 ``warmup_s`` of load before the window; ``check_queries`` answers of the
 window checked; ``profile_s`` seconds profiled with ``--trace 1``.
 
+The end-to-end metric is the card's: MCT queries answered in the window
+over the seconds in which the card ran any operation in it, from a device
+trace of the whole window (``--trace 0``; the profiler starts after
+set-up and before the window opens, so neither times its first start).
+The host path's own rate and search tail are read per layer
+(``bench/metrics/mct_queries_per_s.search.py`` and
+``search_p95_ms.search.py``): they follow the host's speed, which on a
+shared host swings by a fifth within a run and from run to run.
+
 A router thread takes the wrapper's answers and hands each back to its
 searcher by the batch's ``uid``, which the harness numbers.
 """
@@ -25,7 +34,7 @@ import numpy as np
 
 from bench.harness import gen, inputs
 from bench.harness.core import TracedRun
-from bench.harness.profile import hold_window
+from bench.harness.profile import Recorder, hold_window
 from bench.reference import mct as ref
 
 DRAIN_S = 60.0
@@ -67,6 +76,11 @@ class Driver:
         for n in (256, int(t["warm_batch"])):
             enc = self.engine.encode_queries_host(self.pool[:n])
             [x.cpu() for x in self.engine.match(enc)]
+        if self.device.type == "cuda" and self.trace:
+            # the profiler's first start, which the traced sub-window
+            # would otherwise pay inside the window
+            with Recorder():
+                [x.cpu() for x in self.engine.match(enc)]
         self._lock = threading.Lock()
         self._next = 0
         self._serial = 0
@@ -147,6 +161,12 @@ class Driver:
                 s["done"].set()
 
     def window(self, seconds: float, profile_at) -> TracedRun:
+        # without --trace the whole window is profiled, for the card's busy
+        # seconds; the profiler stops once no worker launches any more
+        whole = Recorder() if profile_at is None \
+            and self.device.type == "cuda" else None
+        if whole is not None:
+            whole.start()
         t0, t1, dev = hold_window(seconds, profile_at,
                                   float(self.tr["profile_s"]), self.device)
         self._stop.set()
@@ -155,6 +175,10 @@ class Driver:
             th.join(timeout=max(0.0, deadline - time.perf_counter()))
         self._router.join(timeout=max(0.0, deadline - time.perf_counter()))
         self.wrapper.stop()
+        if whole is not None:
+            whole.stop()
+            dev = whole.collect()
+            dev.t0, dev.t1 = t0, t1
         with self._lock:
             searches = list(self.searches)
             batches = list(self.batches)
@@ -171,15 +195,24 @@ class Driver:
         return [b for b in run.data["batches"]
                 if "t_recv" in b and run.t0 <= b["t_recv"] < run.t1]
 
-    def end_to_end(self, run: TracedRun) -> dict:
-        done = [s for s in run.data["searches"]
+    @staticmethod
+    def search_ms(run: TracedRun) -> List[float]:
+        """First batch submitted to last answer, of each search finished
+        inside the window."""
+        return [(s["t_done"] - s["t_first"]) * 1e3
+                for s in run.data["searches"]
                 if "t_done" in s and run.t0 <= s["t_done"] < run.t1]
-        lat = [(s["t_done"] - s["t_first"]) * 1e3 for s in done]
-        out = {"mct_queries_per_s":
-               sum(b["n"] for b in self.answered(run)) / run.seconds}
-        if lat:
-            out["search_p95_ms"] = float(np.percentile(lat, 95))
-        return out
+
+    def end_to_end(self, run: TracedRun) -> dict:
+        """Queries answered in the window per second of the card's busy
+        time in it (the union of its kernels, copies and sets)."""
+        dev = run.device
+        if dev is None or not dev.aligned:
+            return {}
+        busy = dev.busy_s()
+        n = sum(b["n"] for b in self.answered(run))
+        return {"mct_queries_per_busy_s": n / busy} if busy > 0 and n \
+            else {}
 
     def host_spans(self, run: TracedRun):
         out = []

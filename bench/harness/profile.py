@@ -1,6 +1,6 @@
 """The device trace of a short profiled sub-window, and what it reduces to.
 
-``DeviceTrace.record()`` runs ``torch.profiler`` with CUDA activity only (no
+``Recorder`` runs ``torch.profiler`` with CUDA activity only (no
 operator events on the host, so the host path runs at its own speed) and
 keeps every device activity: kernels, copies and sets, as
 ``(name, start, end)`` in ``time.perf_counter`` seconds. The profiler's
@@ -10,6 +10,7 @@ activities fall inside the sub-window as the host saw it.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -92,9 +93,19 @@ class DeviceTrace:
 
 class Recorder:
     """``with Recorder() as rec: ...`` profiles the body on the card;
-    ``rec.trace`` is the ``DeviceTrace`` afterwards."""
+    ``rec.trace`` is the ``DeviceTrace`` afterwards. ``start`` and ``stop``
+    may instead be called apart, on one thread, and ``collect`` after."""
 
     def __enter__(self) -> "Recorder":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.stop()
+        self.collect()
+        return False
+
+    def start(self) -> None:
         import torch
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
@@ -102,14 +113,16 @@ class Recorder:
         self._prof.__enter__()
         self._off_ns = time.time_ns() - time.perf_counter_ns()
         self.trace = DeviceTrace(t0=time.perf_counter())
-        return self
 
-    def __exit__(self, *exc) -> bool:
+    def stop(self) -> None:
         import torch
-        from torch.autograd import DeviceType
         torch.cuda.synchronize()
         self.trace.t1 = time.perf_counter()
-        self._prof.__exit__(*exc)
+        self._prof.__exit__(None, None, None)
+
+    def collect(self) -> DeviceTrace:
+        """The stopped profiler's device activities into ``trace``."""
+        from torch.autograd import DeviceType
         ops = []
         for ev in self._prof.profiler.kineto_results.events():
             if ev.device_type() != DeviceType.CUDA:
@@ -120,19 +133,67 @@ class Recorder:
         inside = sum(1 for _, s, e in ops
                      if s >= self.trace.t0 - 0.01 and e <= self.trace.t1 + 0.01)
         self.trace.aligned = bool(ops) and inside >= 0.9 * len(ops)
-        return False
+        return self.trace
 
 
-def hold_window(seconds: float, profile_at, profile_s: float, device):
+class PauseAtSpans:
+    """``pause(fn)`` runs ``fn`` on the caller's thread while the thread
+    that emits the program's spans of ``stages`` through ``tracer`` waits,
+    held as it closes its next such span: between two of its stages,
+    launching nothing. Where no such span comes within
+    ``wait_s`` (the load has stopped), ``fn`` runs at once."""
+
+    def __init__(self, tracer, stages, wait_s: float = 30.0):
+        self._span, self._stages, self._wait_s = tracer.span, set(stages), \
+            wait_s
+        self._asks: List[Tuple[threading.Event, threading.Event]] = []
+        self._lock = threading.Lock()
+        tracer.span = self._on_span       # shadows the method: this tracer
+
+    def _on_span(self, stage, *a, **k):
+        out = self._span(stage, *a, **k)
+        if stage in self._stages and self._asks:
+            with self._lock:
+                asks, self._asks = self._asks, []
+            for held, go in asks:
+                held.set()
+                go.wait()
+        return out
+
+    def __call__(self, fn):
+        ask = (threading.Event(), threading.Event())
+        with self._lock:
+            self._asks.append(ask)
+        try:
+            if not ask[0].wait(self._wait_s):
+                with self._lock:
+                    taken = ask not in self._asks
+                    if not taken:
+                        self._asks.remove(ask)
+                if taken:
+                    ask[0].wait()
+            return fn()
+        finally:
+            ask[1].set()
+
+
+def hold_window(seconds: float, profile_at, profile_s: float, device,
+                pause=None):
     """Hold the load's measured window open for ``seconds``; with
     ``profile_at`` (seconds into the window, or None) and a card, profile
-    ``profile_s`` seconds of it. Returns ``(t0, t1, trace or None)``."""
+    ``profile_s`` seconds of it. ``pause(fn)``, where given, runs ``fn``
+    while the thread that launches the program's device work waits between
+    two of its launches: the profiler stops there, with no launch racing
+    the stop. (It starts with the load running: a pause there changes the
+    batches the sub-window sees.) Returns ``(t0, t1, trace or None)``."""
     t0 = time.perf_counter()
     trace = None
     if profile_at is not None and device.type == "cuda":
         time.sleep(profile_at)
-        with Recorder() as rec:
-            time.sleep(profile_s)
-        trace = rec.trace
+        rec = Recorder()
+        rec.start()
+        time.sleep(profile_s)
+        (pause or (lambda fn: fn()))(rec.stop)
+        trace = rec.collect()
     time.sleep(max(0.0, t0 + seconds - time.perf_counter()))
     return t0, time.perf_counter(), trace

@@ -1,11 +1,12 @@
 """Padded share of the prefill tokens the route scorer computed in the
-window: the program's counter (``LMServer.prefill_counts``: prompt
-tokens, and the padding to each batch's longest prompt and to its
-power-of-two row count) read at the window's open and close."""
+window: the program's counter ``LMServer.prefill_counts`` (prompt tokens,
+and the padding of each prefill sub-batch to its own longest prompt),
+which the configuration lists under ``counters``, read at the window's
+open and close."""
 
 
 def read(run):
-    counts = run.data.get("prefill_counts")
+    counts = run.data.get("counts", {}).get("prefill_counts")
     if not counts:
         return None
     (r0, p0), (r1, p1) = counts

@@ -30,15 +30,21 @@ at a time.
 
 Weights are plain tensors in the layout ``x @ w`` (d_in, d_out), norm
 weights multiplicative (1.0 = identity). ``forward`` takes them whole;
-``embed``, ``block`` and ``head`` take them a piece at a time, so that on
-the card the program's weights can be upcast one layer at a time.
+``embed``, ``block`` and ``head`` (or ``logits``) take them a piece at a
+time, so that on the card the program's weights can be upcast one layer at
+a time.
 ``from_port_*`` map the program's parameter dicts onto this layout by key
-(its norms store an offset from 1).
+(its norms store an offset from 1; a tied model's head is its embedding).
+
+``CONTROLS`` names the controls of ``correct`` in the route scorer's cell
+and the weight groups each rounds to the precision below the
+configuration's; ``matrices`` yields those groups' matrices from the
+program's tree, in a fixed order.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +71,13 @@ def head(w_norm: torch.Tensor, w_unembed: torch.Tensor, x: torch.Tensor,
     """(T, D) -> (T, V) logits, float32."""
     h = _rms(x, w_norm.float(), cfg["rms_norm_eps"])
     return (h @ w_unembed.float().T) * cfg["lm_head_multiplier"]
+
+
+def logits(w: Dict[str, torch.Tensor], x: torch.Tensor, cfg: dict
+           ) -> torch.Tensor:
+    """``head`` with the final norm and the head of ``from_port``'s tree
+    (or ``forward``'s weights)."""
+    return head(w["final_norm"], w["unembed"], x, cfg)
 
 
 def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
@@ -175,7 +188,7 @@ def forward(weights: dict, tokens: torch.Tensor, cfg: dict) -> torch.Tensor:
     x = embed(weights["embed"], tokens, cfg)
     for lw in weights["layers"]:
         x = block(lw, x, cfg)
-    return head(weights["final_norm"], weights["unembed"], x, cfg)
+    return logits(weights, x, cfg)
 
 
 # -- the program's parameter tree, read by key ------------------------------
@@ -198,11 +211,40 @@ def from_port_block(p: dict) -> dict:
     }
 
 
-def from_port(params: dict) -> dict:
+def from_port(params: dict, cfg: dict | None = None) -> dict:
     """The program's whole tree in this layout (tensors shared, not
-    copied; upcast in ``block``)."""
+    copied; upcast in ``block``). Where ``cfg`` (the configuration's keys)
+    ties the embeddings, the head is the embedding."""
+    tied = bool(cfg and cfg.get("tie_word_embeddings"))
     layers: List[dict] = [from_port_block(b) for run in params["blocks"]
                           for b in run]
-    return {"embed": params["embed"], "unembed": params["unembed"],
+    return {"embed": params["embed"],
+            "unembed": params["embed" if tied else "unembed"],
             "final_norm": 1.0 + params["norm_f"]["w"].float(),
             "layers": layers}
+
+
+# -- the controls: weight groups rounded below the configuration's precision
+
+# each block's weight groups, by the program's keys
+_GROUPS = (("attn", ("wq", "wk", "wv", "wo")),
+           ("mamba2", ("w_in", "w_out")),
+           ("ffn", ("wg", "wi", "wo")))
+# "fp8" every weight matrix, "mlp_fp8" the MLP's alone
+CONTROLS = {"mlp_fp8": ("ffn",),
+            "fp8": ("embed", "unembed", "attn", "mamba2", "ffn")}
+
+
+def matrices(params: dict, parts) -> Iterator[torch.Tensor]:
+    """The weight matrices of ``parts`` ("embed", "unembed" and the block
+    groups "attn", "mamba2", "ffn") in the program's tree, in a fixed
+    order; a tied model has no "unembed" of its own."""
+    for k in ("embed", "unembed"):
+        if k in parts and k in params:
+            yield params[k]
+    for run in params["blocks"]:
+        for blk in run:
+            for g, keys in _GROUPS:
+                if g in parts:
+                    for k in keys:
+                        yield blk[g][k]

@@ -1,8 +1,9 @@
 """The readers of the program's own spans (``bench/harness/spans.py`` and
 ``wrapper_offcpu_pct``, ``wrapper_handoff_ms_p95``,
 ``lane_host_us_per_call``), on hand-made spans with known values and on the
-spans of a small CPU run of the MCT path; and, on the card, the clock check
-of the device trace against the lane's launch spans:
+spans of a small CPU run of the MCT path; ``PauseAtSpans``, which holds the
+thread that launches the work while the profiler stops; and, on the card,
+the clock check of the device trace against the lane's launch spans:
 
     python -m pytest -m gpu bench/tests/test_bench_trace.py -s
 """
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from bench.harness import core
-from bench.harness.profile import DeviceTrace, Recorder
+from bench.harness.profile import DeviceTrace, PauseAtSpans, Recorder
 from bench.harness.spans import clock_leads
 from repro_torch.kernels.rule_match import SORT_MAX
 from repro_torch.serve.trace import Span, Tracer
@@ -148,6 +149,60 @@ def test_clock_leads(shift, sign):
     assert all(np.sign(x) == sign for x in leads["launch"])
     spans, dev = _calls(sort=False)
     assert clock_leads(spans, dev)["sort"] == []
+
+
+def _emitter(tracer, stage, stop, log):
+    def loop():
+        while not stop.is_set():
+            log.append((stage, time.perf_counter()))
+            tracer.span(stage, 0.0, 1.0)
+            time.sleep(0.002)
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    return th
+
+
+def test_pause_holds_the_thread_of_its_stages_only():
+    """While the call runs, the thread closing spans of the given stages
+    emits nothing, and one closing other stages goes on."""
+    tr = Tracer()
+    pause = PauseAtSpans(tr, ("lm.decode",))
+    stop = threading.Event()
+    log = []
+    threads = [_emitter(tr, "lm.decode", stop, log),
+               _emitter(tr, "queue_wait", stop, log)]
+    held = []
+
+    def fn():
+        t0 = time.perf_counter()
+        time.sleep(0.1)
+        held.append((t0, time.perf_counter()))
+        return 7
+    try:
+        for _ in range(3):
+            assert pause(fn) == 7
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=10)
+    assert not any(th.is_alive() for th in threads)
+    for t0, t1 in held:
+        inside = [st for st, t in log if t0 < t < t1]
+        assert "lm.decode" not in inside and "queue_wait" in inside
+    assert [st for st, _ in log].count("lm.decode") > 3
+
+
+def test_pause_runs_at_once_without_spans_and_hands_back_errors():
+    tr = Tracer()
+    pause = PauseAtSpans(tr, ("lm.decode",), wait_s=0.05)
+    assert pause(lambda: 5) == 5
+
+    def bad():
+        raise RuntimeError("profiler")
+    with pytest.raises(RuntimeError, match="profiler"):
+        pause(bad)
+    tr.span("lm.decode", 0.0, 1.0)        # nothing left asked: not held
 
 
 @pytest.mark.gpu
